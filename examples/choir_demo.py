@@ -6,7 +6,7 @@ sources) vs off (48) — and shows the outputs match to float precision
 while the deduped render does ~1/8 of the gather/assembly/MAC work.
 Writes the stereo result next to this script.
 
-    PYTHONPATH="/root/repo:$PYTHONPATH" python examples/choir_demo.py
+    PYTHONPATH=. python examples/choir_demo.py
 """
 
 import os

@@ -5,7 +5,7 @@ stronger ILD + 6 dB gain), "records" what they hear, then fits the
 personalization parameters by gradient descent through the renderer and
 reports how much closer the personalized render is.
 
-    PYTHONPATH="/root/repo:$PYTHONPATH" python examples/personalization_demo.py
+    PYTHONPATH=. python examples/personalization_demo.py
 """
 
 import numpy as np

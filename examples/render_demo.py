@@ -1,6 +1,6 @@
 """End-to-end demo: synthesize a scene, render it three ways, write WAVs.
 
-    PYTHONPATH="/root/repo:$PYTHONPATH" python examples/render_demo.py out_dir
+    PYTHONPATH=. python examples/render_demo.py out_dir
 
 Produces:
   static.wav     — voice-like tone at az 60°

@@ -3,10 +3,9 @@
 The test suite pins specific knob pairs; this one-off sweep samples the
 FULL config cross-product (semantic knobs × perf knobs) and asserts every
 sampled point stays ≥60 dB vs `tinaural.reference.golden` on trajectory,
-static and streaming renders (tiny shapes, interpret-mode kernels on
-CPU). Perf knobs (filter_path / fft_pack / fft_impl / use_pallas /
-fuse_epilogue / kernel_precision / part_assembly) must be semantics-
-preserving by design — any sampled point below the gate is a real
+static and streaming renders (tiny shapes, on the CPU). Perf knobs
+(filter_path / fft_pack / fft_impl) must be semantics-preserving by
+design — any sampled point below the gate is a real
 interaction bug.
 
 Usage: JAX_PLATFORMS=cpu python scripts/sweep_config_matrix.py [N] [seed]
@@ -48,16 +47,11 @@ def sample_config(rng: random.Random) -> RenderConfig:
         crossfade=rng.choice([True, False]),
         scene_chunk=rng.choice([4, 8]),
         filter_path=rng.choice(["matmul", "hybrid", "fft"]),
-        use_pallas=rng.choice([True, False]),
-        fuse_epilogue=rng.choice([True, False]),
-        kernel_precision=rng.choice(["tri", "highest"]),
-        pallas_interpret=True,  # CPU: interpret or irrelevant
         fft_pack=rng.choice(["off", "fwd", "both"]),
         fft_impl=rng.choice(["xla", "matmul"]),
         out_length=rng.choice(["full", "same"]),
         dir_rate=rng.choice([1, 2, 4, 8]),
         stream_update_rate=rng.choice([1, 2, 4, 8]),
-        part_assembly=rng.choice(["kernel", "xla"]),
     )
 
 

@@ -6,9 +6,8 @@ does not cover —
 
 - moving-direction scenes (`render_scene` with (S, nb, 2) tracks,
   dedupe on and off) vs `golden.render_scene`
-- BRIR-length tables (512 / 2048 taps → the partitioned core,
-  `part_assembly` kernel/xla, `use_filter_fft` routing) on trajectory
-  renders vs the oracle
+- BRIR-length tables (512 / 2048 taps → the partitioned core and its
+  matmul-vs-fft assembly deferral) on trajectory renders vs the oracle
 - `render_streamed` (batched partitioned convolution, offline) vs
   sequential `GoldenStream` pushes (rate knobs pinned to 1 — the
   documented equivalence regime)
@@ -51,15 +50,10 @@ def sample_config(rng: random.Random) -> RenderConfig:
         crossfade=rng.choice([True, False]),
         scene_chunk=rng.choice([4, 8]),
         filter_path=rng.choice(["matmul", "hybrid", "fft"]),
-        use_pallas=rng.choice([True, False]),
-        fuse_epilogue=rng.choice([True, False]),
-        kernel_precision=rng.choice(["tri", "highest"]),
-        pallas_interpret=True,
         fft_pack=rng.choice(["off", "fwd", "both"]),
         fft_impl=rng.choice(["xla", "matmul"]),
         out_length=rng.choice(["full", "same"]),
         dir_rate=rng.choice([1, 2, 4]),
-        part_assembly=rng.choice(["kernel", "xla"]),
     )
 
 
@@ -93,7 +87,7 @@ def main() -> int:
                                                   config=cfg, dedupe=dd))
             checks.append((f"scene_moving_dedupe={dd}", snr_db(yg, yj)))
 
-        # BRIR-length trajectory (partitioned core; part_assembly routing)
+        # BRIR-length trajectory (partitioned core; assembly deferral)
         # — plus the short-table L=128/256 mirror-free corners
         taps = rng.choice([64, 512, 2048])
         bt = tables[taps]

@@ -66,8 +66,6 @@ def main() -> int:
             interp=rng.choice(["nearest", "bilinear"]),
             block_size=rng.choice([128, 256, 512, 1024]),
             crossfade=rng.choice([True, False]),
-            use_pallas=rng.choice([True, False]),
-            pallas_interpret=True,
             out_length=rng.choice(["full", "same"]),
             dir_rate=rng.choice([1, 2, 4]),
         )
@@ -115,7 +113,7 @@ def main() -> int:
         worst = min(checks, key=lambda c: c[1])
         status = "ok" if worst[1] >= GATE_DB else "FAIL"
         print(f"[{i + 1}/{n}] worst [{worst[0]}] {worst[1]:.1f} dB {status} "
-              f"B={B} pallas={cfg.use_pallas} out={cfg.out_length} "
+              f"B={B} out={cfg.out_length} "
               f"dr={cfg.dir_rate}", flush=True)
         failures += [(m, db, cfg) for m, db in checks if db < GATE_DB]
 

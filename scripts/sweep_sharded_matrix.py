@@ -55,10 +55,6 @@ def sample_config(rng: random.Random) -> RenderConfig:
         stream_block=rng.choice([128, 256, 512]),
         crossfade=rng.choice([True, False]),
         filter_path=rng.choice(["matmul", "hybrid", "fft"]),
-        use_pallas=rng.choice([True, False]),
-        fuse_epilogue=rng.choice([True, False]),
-        kernel_precision=rng.choice(["tri", "highest"]),
-        pallas_interpret=True,
         fft_pack=rng.choice(["off", "fwd", "both"]),
         out_length=rng.choice(["full", "same"]),
         dir_rate=rng.choice([1, 2, 4]),

@@ -66,8 +66,6 @@ def main() -> int:
         cfg = RenderConfig(
             stream_block=rng.choice([128, 256, 512]),
             crossfade=rng.choice([True, False]),
-            use_pallas=rng.choice([True, False]),
-            pallas_interpret=True,
             fft_pack=rng.choice(["off", "both"]),
             stream_update_rate=k,
         )
@@ -125,7 +123,7 @@ def main() -> int:
         worst = min(checks, key=lambda c: c[1])
         status = "ok" if worst[1] >= GATE_DB else "FAIL"
         print(f"[{i + 1}/{n}] worst [{worst[0]}] {worst[1]:.1f} dB {status} "
-              f"B={B} k={k} xfade={cfg.crossfade} pallas={cfg.use_pallas}",
+              f"B={B} k={k} xfade={cfg.crossfade}",
               flush=True)
         failures += [(m, db) for m, db in checks if db < GATE_DB]
 

@@ -31,7 +31,7 @@ def test_cli_render_static(mono_wav, tmp_path):
     assert e[1] > e[0]
 
 
-def test_cli_render_golden_matches_tpu_path(mono_wav, tmp_path):
+def test_cli_render_golden_matches_jax_path(mono_wav, tmp_path):
     a, b = tmp_path / "a.wav", tmp_path / "b.wav"
     main(["render", str(mono_wav), str(a), "--az", "33", "--el", "12"])
     main(["render", str(mono_wav), str(b), "--az", "33", "--el", "12",

@@ -181,7 +181,7 @@ def test_edge_case_signals(table):
     assert np.all(np.isfinite(y))
 
 
-def test_tpu_edge_case_signals(table):
+def test_jax_edge_case_signals(table):
     from tinaural.models import BinauralRenderer
 
     cfg = RenderConfig(block_size=256)

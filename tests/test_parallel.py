@@ -54,33 +54,27 @@ def test_scene_sharded_pads_sources(table, rng):
 
 
 def test_scene_sharded_single_launch_route(table, rng, monkeypatch):
-    """Sharded scenes route through the SINGLE-launch render kernel when
-    it gates on at the per-shard shapes (round-4 VERDICT missing #3: the
-    shard body used to stop at the two-launch pipeline, one architecture
-    generation behind single-chip). Asserts the route actually fires
-    inside shard_map (trace-time counter on the imported symbol) and
+    """The sharded scene's shard body IS the single-device scene core
+    (`_scene_core` for moving, `_scene_static_core` for static sources),
+    run once per shard inside shard_map. Asserts each core actually runs
+    there (trace-time counter on the symbol the shard body calls) and
     stays golden-parity — moving and static scenes."""
-    import tinaural.models.renderer as mr
-    from tinaural.models.renderer import _use_fused_render, next_pow2
-    from tinaural.ops.filters import DELAY_PAD
+    import tinaural.parallel.scene as ps
 
-    cfg = RenderConfig(block_size=256, use_pallas=True,
-                       pallas_interpret=True)
+    cfg = RenderConfig(block_size=256)
     S, N, B = 16, 2000, 256
-    taps = table.h.shape[-1]
-    n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-    assert _use_fused_render(cfg, taps, n_fft, B, S // 8)  # per-shard S
 
     calls = {"n": 0}
-    real = mr._fused_render
 
-    def counting(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k)
+    def counting(real):
+        def fn(*a, **k):
+            calls["n"] += 1
+            return real(*a, **k)
+        return fn
 
-    # the shard body IS _scene_core (round-5 simplification), so the
-    # symbol to count lives in models.renderer now
-    monkeypatch.setattr(mr, "_fused_render", counting)
+    monkeypatch.setattr(ps, "_scene_core", counting(ps._scene_core))
+    monkeypatch.setattr(ps, "_scene_static_core",
+                        counting(ps._scene_static_core))
     # the counter only ticks at TRACE time: drop any executable cached
     # by an earlier test with identical (shapes, config, mesh), which
     # would skip tracing and zero the counter spuriously
@@ -92,7 +86,7 @@ def test_scene_sharded_single_launch_route(table, rng, monkeypatch):
     dmov = np.stack([rng.uniform(0, 360, (S, nb)),
                      rng.uniform(-40, 90, (S, nb))], axis=-1)
     y = np.asarray(render_scene_sharded(table, xs, dmov, mesh, cfg))
-    assert calls["n"] > 0, "single-launch route did not fire in shard_map"
+    assert calls["n"] > 0, "scene core did not run in shard_map"
     ref = golden.render_scene(table, xs, dmov, cfg)
     assert snr_db(ref, y) > 60
 
@@ -201,24 +195,17 @@ def test_sharded_push_many_matches_sequential(table, rng):
 
 
 def test_sharded_stream_asm_mode_long_filters(rng):
-    """Pod-scale BRIR serving: long-tap (512) per-listener filters route
-    through the streaming kernel's IN-KERNEL assembly mode (over the
-    zoom-matrix VMEM budget) *under shard_map* on the 8-device src mesh —
-    the round-4 BRIR-streaming path composed with the collective-free
+    """Multi-device BRIR serving: long-tap (512) per-listener filters
+    (P = 3 partitions at block 256) *under shard_map* on the 8-device src
+    mesh — long-filter streaming composed with the collective-free
     sharded serving layer. Golden parity per listener across shard
     boundaries, plus push_many state-chaining on the same route."""
     from tinaural.data import load_hrir_set
     from tinaural.parallel import ShardedBatchedStream, make_mesh
-    from tinaural.models.streaming import _use_fused_step
-    from tinaural.ops.pallas_kernels import stream_step_vmem_bytes
-    from tinaural.ops.vmem import KERNEL_BUDGET
 
     table = load_hrir_set("synthetic", taps=512)
     B, S, K = 256, 8, 2
-    cfg = RenderConfig(stream_block=B, pallas_interpret=True)
-    # over the zoom budget (else this exercises nothing new), yet fused
-    assert stream_step_vmem_bytes(512, B, S // 8) >= KERNEL_BUDGET
-    assert _use_fused_step(jax.device_put(table), cfg, S // 8)
+    cfg = RenderConfig(stream_block=B)
     mesh = make_mesh((8, 1))
     svc = ShardedBatchedStream(table, S, mesh, cfg)
     azs = np.linspace(10, 320, S).astype(np.float32)
@@ -230,7 +217,7 @@ def test_sharded_stream_asm_mode_long_filters(rng):
     for g, s in zip(golds, (0, 7)):  # first + last shard
         ref = g.push(blocks[s].astype(np.float64), azs[s], els[s])
         assert snr_db(ref, y[s]) > 60, s
-    # push_many chains state through the same asm-mode kernel
+    # push_many chains state through the same step
     mb = rng.standard_normal((K, S, B)).astype(np.float32)
     ym = np.asarray(svc.push_many(mb, azs, els))
     assert ym.shape == (K, S, 2, B)
@@ -242,20 +229,17 @@ def test_sharded_stream_asm_mode_long_filters(rng):
 
 def test_sharded_push_many_update_rate(rng):
     """`stream_update_rate` composes with the sharded serving layer: the
-    lax.cond'd update/hold schedule (hold = `fused_stream_hold`, no
-    assembly) runs inside shard_map on the 8-device src mesh, on the
-    long-tap asm-mode route where the knob matters most. Golden parity
+    lax.cond'd update/hold schedule (the hold step does no assembly)
+    runs inside shard_map on the 8-device src mesh, with long taps where
+    the knob matters most. Golden parity
     per listener across shard boundaries via the push/push_held
     schedule (`GoldenStream.push_held`)."""
     from tinaural.data import load_hrir_set
-    from tinaural.models.streaming import _use_fused_step
     from tinaural.parallel import ShardedBatchedStream, make_mesh
 
     table = load_hrir_set("synthetic", taps=512)
     B, S, K, k = 256, 8, 8, 4
-    cfg = RenderConfig(stream_block=B, pallas_interpret=True,
-                       stream_update_rate=k)
-    assert _use_fused_step(jax.device_put(table), cfg, S // 8)
+    cfg = RenderConfig(stream_block=B, stream_update_rate=k)
     mesh = make_mesh((8, 1))
     svc = ShardedBatchedStream(table, S, mesh, cfg)
     azs = (np.linspace(10, 320, K * S).reshape(K, S)).astype(np.float32)

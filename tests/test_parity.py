@@ -1,4 +1,4 @@
-"""M2–M5 + M7 tests: TPU (JAX) paths vs the CPU golden reference.
+"""M2–M5 + M7 tests: the JAX paths vs the CPU golden reference.
 
 The core suite of SURVEY.md §4.2: for each BASELINE.json config, run the
 jitted path and the NumPy oracle on the same inputs and assert
@@ -220,10 +220,10 @@ def test_jit_no_recompile_across_directions(table, rng):
     r = BinauralRenderer(table, RenderConfig())
     x = rng.standard_normal(1024)
     r.render(x, 10.0, 0.0)
-    misses0 = _static_fn.jitted._cache_size()
+    misses0 = _static_fn._cache_size()
     r.render(x, 123.4, -20.0)
     r.render(x, 77.7, 55.5)
-    assert _static_fn.jitted._cache_size() == misses0
+    assert _static_fn._cache_size() == misses0
 
 
 def test_render_batch_matches_individual(table, rng):
@@ -315,10 +315,7 @@ def test_dir_rate_golden_identity(table, rng):
 
 
 def test_dir_rate_parity_trajectory_and_scene(table, rng):
-    """TPU paths match the golden oracle at dir_rate in {1, 4}, in both
-    the XLA fallback and the interpret-mode fused kernels (the fused
-    render kernel assembles only the unique filters — must be exactly
-    the same map)."""
+    """The JAX paths match the golden oracle at dir_rate in {1, 4}."""
     x = rng.standard_normal(8 * 256)
     nb = 8
     dirs = np.stack([np.linspace(300, 20, nb) % 360,
@@ -327,29 +324,26 @@ def test_dir_rate_parity_trajectory_and_scene(table, rng):
     sdirs = np.stack([rng.uniform(0, 360, (3, nb)),
                       rng.uniform(-40, 90, (3, nb))], axis=2)
     for k in (1, 4):
-        for pallas in (False, True):
-            cfg = RenderConfig(block_size=256, dir_rate=k,
-                               use_pallas=pallas, pallas_interpret=pallas)
-            r = BinauralRenderer(table, cfg)
-            y = np.asarray(r.render_trajectory(x, dirs))
-            ref = golden.render_trajectory(table, x, dirs, cfg)
-            assert snr_db(ref, y) > GATE_DB, (k, pallas, "traj")
-            y = np.asarray(r.render_scene(xs, sdirs))
-            ref = golden.render_scene(table, xs, sdirs, cfg)
-            assert snr_db(ref, y) > GATE_DB, (k, pallas, "scene")
+        cfg = RenderConfig(block_size=256, dir_rate=k)
+        r = BinauralRenderer(table, cfg)
+        y = np.asarray(r.render_trajectory(x, dirs))
+        ref = golden.render_trajectory(table, x, dirs, cfg)
+        assert snr_db(ref, y) > GATE_DB, (k, "traj")
+        y = np.asarray(r.render_scene(xs, sdirs))
+        ref = golden.render_scene(table, xs, sdirs, cfg)
+        assert snr_db(ref, y) > GATE_DB, (k, "scene")
 
 
 def test_dir_rate_streamed_snaps(table, rng):
     """render_streamed (the partitioned/BRIR moving route) honors
     dir_rate: a dir_rate=4 render equals the dir_rate=1 render of the
-    snapped track (the knob was a silent no-op on exactly this path —
-    round-4 review finding)."""
+    snapped track (the knob must act on this path too)."""
     B = 128
     nb = 12
     x = rng.standard_normal(nb * B).astype(np.float32)
     dirs = np.stack([np.linspace(0, 330, nb), np.linspace(-35, 80, nb)],
                     axis=1).astype(np.float32)
-    cfg = RenderConfig(stream_block=B, pallas_interpret=True)
+    cfg = RenderConfig(stream_block=B)
     r4 = BinauralRenderer(table, cfg.replace(dir_rate=4))
     r1 = BinauralRenderer(table, cfg)
     a = np.asarray(r4.render_streamed(x, dirs))
@@ -360,16 +354,14 @@ def test_dir_rate_streamed_snaps(table, rng):
 
 
 def test_dir_rate_batch_parity(table, rng):
-    """render_batch (the serving route through fused_block_step) at
-    dir_rate=4 matches per-source golden trajectories of the snapped
-    tracks — the flattened-batch unique-filter slicing must respect
-    source boundaries (k | nb alignment)."""
+    """render_batch (the serving route) at dir_rate=4 matches
+    per-source golden trajectories of the snapped tracks — the snapping
+    must respect source boundaries."""
     S, nb = 3, 8
     xs = rng.standard_normal((S, nb * 256))
     dirs = np.stack([rng.uniform(0, 360, (S, nb)),
                      rng.uniform(-40, 90, (S, nb))], axis=2)
-    cfg = RenderConfig(block_size=256, dir_rate=4, use_pallas=True,
-                       pallas_interpret=True)
+    cfg = RenderConfig(block_size=256, dir_rate=4)
     r = BinauralRenderer(table, cfg)
     yb = np.asarray(r.render_batch(xs, dirs))
     for s in range(S):
@@ -378,14 +370,10 @@ def test_dir_rate_batch_parity(table, rng):
 
 
 def test_big_chunk_routes_parity(table, rng):
-    """The nb >= 64 renders launch the fused render kernel at chunk=96
-    (S=1 always; scenes when the dir_rate=4 unique-assembly fast path
-    fires — both routed in models.renderer._fused_render's chunk
-    ladder). Lock the big-chunk grid/padding/OLA-carry algebra against
-    the oracle in interpret mode; the nb=8 tests above never leave
-    chunk 32. nb=102 exercises a multi-chunk grid whose final dir_rate
-    group is PARTIAL (102 = 25·4 + 2) and whose padded row count (192)
-    crosses a chunk boundary off the nb itself."""
+    """Long renders (nb >= 64) against the oracle: trajectory, moving
+    and static scenes at dir_rate=4. nb=102 leaves a PARTIAL final
+    dir_rate group (102 = 25·4 + 2) and pads to a bucketed block count
+    (`_bucket_nb`) off the nb itself."""
     nb, B = 102, 256
     x = rng.standard_normal(nb * B)
     dirs = np.stack([np.linspace(300, 60, nb) % 360,
@@ -393,8 +381,7 @@ def test_big_chunk_routes_parity(table, rng):
     xs = rng.standard_normal((2, nb * B))
     sdirs = np.stack([rng.uniform(0, 360, (2, nb)),
                       rng.uniform(-40, 90, (2, nb))], axis=2)
-    cfg = RenderConfig(block_size=B, dir_rate=4, use_pallas=True,
-                       pallas_interpret=True)
+    cfg = RenderConfig(block_size=B, dir_rate=4)
     r = BinauralRenderer(table, cfg)
     y = np.asarray(r.render_trajectory(x, dirs))
     ref = golden.render_trajectory(table, x, dirs, cfg)
@@ -402,7 +389,7 @@ def test_big_chunk_routes_parity(table, rng):
     y = np.asarray(r.render_scene(xs, sdirs))
     ref = golden.render_scene(table, xs, sdirs, cfg)
     assert snr_db(ref, y) > GATE_DB, "scene chunk96 dir4"
-    # static scene ((S, 2) dirs) -> crossfade-free kernel at chunk 96
+    # static scene ((S, 2) dirs) -> the static scene core
     s0 = np.ascontiguousarray(sdirs[:, 0])
     ys = np.asarray(r.render_scene(xs, s0))
     refs = golden.render_scene(

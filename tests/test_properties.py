@@ -50,7 +50,7 @@ def test_interpolation_continuity(table, az, el):
     seed=st.integers(0, 2**31 - 1),
 )
 def test_static_parity_random(table, n, az, el, seed):
-    """TPU-path static render vs oracle at random lengths/directions."""
+    """JAX static render vs oracle at random lengths/directions."""
     x = np.random.default_rng(seed).standard_normal(n)
     y = np.asarray(BinauralRenderer(table, RenderConfig()).render(x, az, el))
     ref = golden.render_static(table, x, az, el, RenderConfig())
@@ -106,14 +106,11 @@ def test_batched_stream_matches_individual(table, rng):
             assert snr_db(ys, yb[s]) > 100
 
 
-@pytest.mark.parametrize("interpret", [False, True])
-def test_push_many_matches_sequential_pushes(table, rng, interpret):
+def test_push_many_matches_sequential_pushes(table, rng):
     """push_many(K blocks in one dispatch) matches K sequential push()
-    calls — same outputs, same carried state — on both the XLA step and
-    the fused kernel (interpret) routes. The fused route is bit-exact
-    (same kernel either way); the XLA route is float-exact only (the
-    scan body compiles with different fusion than the standalone step)."""
-    cfg = RenderConfig(stream_block=256, pallas_interpret=interpret)
+    calls — same outputs, same carried state — float-exact (the scan
+    body compiles with different fusion than the standalone step)."""
+    cfg = RenderConfig(stream_block=256)
     S, K, B = 3, 5, 256
     bs_seq = BatchedStream(table, S, cfg)
     bs_many = BatchedStream(table, S, cfg)
@@ -244,7 +241,7 @@ def test_output_continuous_in_direction_at_crossing(table, rng):
     seed=st.integers(0, 2**31 - 1),
 )
 def test_parity_on_random_grid_geometries(n_rings, seed):
-    """TPU-path parity holds on arbitrary grid geometries, not just the
+    """JAX-path parity holds on arbitrary grid geometries, not just the
     KEMAR fixture: random ring elevations, ragged azimuth counts
     (including count-1 rings), random HRIR content."""
     from tinaural.data import build_table

@@ -188,20 +188,19 @@ def test_partitioned_scan_honors_fft_filter_path(rng):
 
 
 def test_stream_xla_step_defers_long_partitions_to_fft(table, rng):
-    """The XLA streaming step's filter assembly mirrors _partitioned_core's
-    matmul-vs-fft deferral (round-5 review: it built the O(taps·FL)
-    partition zoom matrices unconditionally — hundreds of MB at BRIR
-    taps, an OOM at second-long filters). Asserts the routing rule
-    directly and golden parity through the fft-chain branch."""
+    """The streaming step's filter assembly mirrors _partitioned_core's
+    matmul-vs-fft deferral (building the O(taps·FL) partition zoom
+    matrices unconditionally would take hundreds of MB at BRIR taps, an
+    OOM at second-long filters). Asserts the routing rule directly and
+    golden parity through the fft-chain branch."""
     import jax.numpy as jnp
 
     import tinaural.models.streaming as ms
     from tinaural.data import load_hrir_set
-    from tinaural.models.streaming import (_n_parts, _step_core_xla,
-                                           init_state)
+    from tinaural.models.streaming import _n_parts, _step_core, init_state
 
     t2 = load_hrir_set("synthetic", taps=2048)
-    cfg = RenderConfig(stream_block=256, use_pallas=False)
+    cfg = RenderConfig(stream_block=256)
     assert _n_parts(t2, cfg) > 4
 
     seen = {}
@@ -219,8 +218,8 @@ def test_stream_xla_step_defers_long_partitions_to_fft(table, rng):
         for i in range(2):
             xb = rng.standard_normal(256).astype(np.float32)
             st, y = jax.jit(
-                lambda s, x, a: _step_core_xla(tbl, s, x, a,
-                                               jnp.float32(5.0), cfg))(
+                lambda s, x, a: _step_core(tbl, s, x, a,
+                                           jnp.float32(5.0), cfg))(
                 st, jnp.asarray(xb), jnp.float32(30.0 + 10 * i))
             ref = g.push(xb.astype(np.float64), 30.0 + 10 * i, 5.0)
             assert snr_db(ref, np.asarray(y)) > 60, i
@@ -230,11 +229,11 @@ def test_stream_xla_step_defers_long_partitions_to_fft(table, rng):
     # short filters (P<=4) keep the matmul partitions
     ms.filter_partitions = spy
     try:
-        cfg4 = RenderConfig(stream_block=256, use_pallas=False)
+        cfg4 = RenderConfig(stream_block=256)
         assert _n_parts(table, cfg4) <= 4
         tbl1 = jax.device_put(table)
         st = init_state(table, cfg4)
-        jax.jit(lambda s, x: _step_core_xla(
+        jax.jit(lambda s, x: _step_core(
             tbl1, s, x, jnp.float32(10.0), jnp.float32(0.0), cfg4))(
             st, jnp.zeros(256, jnp.float32))
         assert seen["use_matmul"] is True
@@ -243,33 +242,17 @@ def test_stream_xla_step_defers_long_partitions_to_fft(table, rng):
 
 
 def test_render_batch_fft_path_avoids_vmapped_fused_epilogue(table, rng):
-    """render_batch on filter_path="fft" (fused epilogue eligible, block
-    kernels not) must NOT vmap _trajectory_core into the fused epilogue —
-    vmap over the fused kernels is forbidden (round-5 review). Asserts
-    the epilogue kernel never runs under this route and output parity."""
-    import tinaural.models.renderer as mr
+    """render_batch on filter_path="fft" vmaps _trajectory_core with
+    its one epilogue (packed irfft + OLA) over the chunk's sources;
+    each render matches its golden static render."""
     from tinaural.models import BinauralRenderer
 
-    cfg = RenderConfig(block_size=1024, filter_path="fft", use_pallas=True,
-                       pallas_interpret=True)
-    calls = {"n": 0}
-    real = mr._fused_ola_ears
-
-    def counting(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k)
-
-    mr._fused_ola_ears = counting
-    try:
-        jax.clear_caches()
-        r = BinauralRenderer(table, cfg)
-        xs = rng.standard_normal((3, 3000)).astype(np.float32)
-        dirs = np.stack([np.array([30.0, 120.0, 250.0]),
-                         np.array([0.0, -10.0, 40.0])], 1)
-        y = np.asarray(r.render_batch(xs, dirs))
-    finally:
-        mr._fused_ola_ears = real
-    assert calls["n"] == 0, "fused epilogue ran under the vmapped fallback"
+    cfg = RenderConfig(block_size=1024, filter_path="fft")
+    r = BinauralRenderer(table, cfg)
+    xs = rng.standard_normal((3, 3000)).astype(np.float32)
+    dirs = np.stack([np.array([30.0, 120.0, 250.0]),
+                     np.array([0.0, -10.0, 40.0])], 1)
+    y = np.asarray(r.render_batch(xs, dirs))
     for s in range(3):
         ref = golden.render_static(table, xs[s], dirs[s, 0], dirs[s, 1],
                                    RenderConfig(block_size=1024))
@@ -278,20 +261,15 @@ def test_render_batch_fft_path_avoids_vmapped_fused_epilogue(table, rng):
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    # in-kernel BRIR assembly at L=256 (taps 128 + DELAY_PAD → n1L=2):
-    # zero Hermitian mirror groups in the inverse-L four-step
-    dict(stream_block=256, filter_path="fft", part_assembly="kernel"),
-    # non-asm partitioned step at n1p=2 (stream_block 128 → 2B=256)
+    # fft-chain partition assembly at L=256 (taps 128 + DELAY_PAD)
+    dict(stream_block=256, filter_path="fft"),
+    # matmul partitions at a small frame (stream_block 128 → 2B=256)
     dict(stream_block=128),
 ])
 def test_small_fft_mirror_free_partitioned_shapes(table, rng, cfg_kw):
-    """Round-5 randomized audit finding: every scrambled-half four-step
-    site built its Hermitian-mirror concat unconditionally, so shapes
-    with NO mirror groups (n1 ≤ 2 — short tables through the partitioned
-    kernels, small blocks) crashed with "Need at least one array to
-    concatenate". The mirror branch must be skipped when the stored half
-    is the whole spectrum; parity defines the fix."""
-    cfg = RenderConfig(use_pallas=True, pallas_interpret=True, **cfg_kw)
+    """Small FFT frames through the partitioned route (short tables,
+    small blocks) match the golden stream."""
+    cfg = RenderConfig(**cfg_kw)
     B = cfg.stream_block
     r = BinauralRenderer(table, cfg)
     x = rng.standard_normal(4 * B).astype(np.float32) * 0.1
@@ -305,13 +283,10 @@ def test_small_fft_mirror_free_partitioned_shapes(table, rng, cfg_kw):
 
 
 def test_short_table_l128_asm_route(rng):
-    """Same finding, the n1L=1 extreme: a 64-tap table (L = 128, one
-    lane group — `_forward_fourstep`'s mirror tile is group 0 alone)
-    through the in-kernel partitioned assembly."""
+    """The smallest assembly frame: a 64-tap table (L = 128) through
+    the fft-chain partition assembly."""
     t64 = load_hrir_set("synthetic", taps=64)
-    cfg = RenderConfig(stream_block=256, filter_path="fft",
-                       part_assembly="kernel", use_pallas=True,
-                       pallas_interpret=True)
+    cfg = RenderConfig(stream_block=256, filter_path="fft")
     r = BinauralRenderer(t64, cfg)
     x = rng.standard_normal(4 * 256).astype(np.float32) * 0.1
     dirs = np.stack([np.linspace(10, 150, 4),
@@ -324,10 +299,9 @@ def test_short_table_l128_asm_route(rng):
 
 
 def test_small_fft_mirror_free_block_render(table, rng):
-    """Same finding, the block-render epilogue site: block_size=128
-    (n_fft=256 → n1=2) through the fused pipeline."""
-    cfg = RenderConfig(block_size=128, use_pallas=True,
-                       pallas_interpret=True)
+    """The smallest block-render frame: block_size=128 (n_fft=256)
+    through the trajectory route."""
+    cfg = RenderConfig(block_size=128)
     nb = 8
     x = rng.standard_normal(nb * 128).astype(np.float32) * 0.1
     dirs = np.stack([np.linspace(250, 110, nb) % 360,

@@ -2,7 +2,7 @@
 ROADMAP residual): within a burst, filters reassemble only at
 burst-local pushes 0, k, 2k, …; held pushes render under the carried
 partitions via the hold-filter step (`GoldenStream.push_held` defines
-the semantics; `fused_stream_hold` is the kernel route).
+the semantics).
 """
 
 import jax
@@ -61,13 +61,11 @@ def test_config_validates_update_rate():
         RenderConfig(stream_update_rate=3)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_push_many_update_rate_matches_golden(table, rng, use_pallas):
-    """BatchedStream.push_many at k=4 (fused hold kernel in interpret
-    mode / the XLA hold step) matches the golden schedule per listener."""
+def test_push_many_update_rate_matches_golden(table, rng):
+    """BatchedStream.push_many at k=4 (update and hold steps) matches
+    the golden schedule per listener."""
     k, K, S, B = 4, 8, 3, 256
-    cfg = RenderConfig(stream_block=B, use_pallas=use_pallas,
-                       pallas_interpret=use_pallas, stream_update_rate=k)
+    cfg = RenderConfig(stream_block=B, stream_update_rate=k)
     bs = BatchedStream(table, S, cfg)
     azs = np.linspace(0, 300, K * S).reshape(K, S).astype(np.float32)
     els = np.linspace(-30, 60, K * S).reshape(K, S).astype(np.float32)
@@ -81,20 +79,17 @@ def test_push_many_update_rate_matches_golden(table, rng, use_pallas):
 
 
 def test_update_rate_brir_asm_mode(rng):
-    """2048-tap BRIR streams at k=2: update pushes take the in-kernel
-    assembly step, held pushes the hold kernel — the pairing this knob
-    exists for (assembly dominates BRIR per-push cost)."""
+    """2048-tap BRIR streams at k=2: update pushes assemble the filter
+    partitions through the fft chain (P > 4), held pushes reuse them —
+    the pairing this knob exists for (assembly dominates BRIR per-push
+    cost)."""
     from tinaural.data import load_hrir_set
-    from tinaural.models.streaming import _n_parts, _use_fused_step
-    from tinaural.ops import vmem
+    from tinaural.models.streaming import _n_parts
 
     table = load_hrir_set("synthetic", taps=2048)
     k, K, S, B = 2, 4, 2, 256
-    cfg = RenderConfig(stream_block=B, pallas_interpret=True,
-                       stream_update_rate=k)
-    assert vmem.stream_mode(2048, B, S) == "asm"
-    assert _use_fused_step(jax.device_put(table), cfg, S)
-    assert vmem.stream_hold_chunk(B, _n_parts(table, cfg), S) >= 8
+    cfg = RenderConfig(stream_block=B, stream_update_rate=k)
+    assert _n_parts(table, cfg) > 4  # fft-chain assembly regime
     bs = BatchedStream(table, S, cfg)
     azs = np.array([[30.0, 250.0]] * K, np.float32) + \
         10 * np.arange(K, dtype=np.float32)[:, None]
@@ -112,8 +107,7 @@ def test_render_offline_update_rate(table, rng):
     """Stream.render_offline honors the knob through the single-stream
     scan (same burst-local schedule)."""
     k, nb, B = 2, 6, 256
-    cfg = RenderConfig(stream_block=B, use_pallas=True,
-                       pallas_interpret=True, stream_update_rate=k)
+    cfg = RenderConfig(stream_block=B, stream_update_rate=k)
     x = rng.standard_normal(nb * B)
     dirs = np.stack([np.linspace(0, 150, nb), np.linspace(-20, 20, nb)],
                     axis=1)
@@ -130,8 +124,7 @@ def test_update_rate_burst_local_schedule_and_resume(table, rng):
     public state), and checkpoint/resume under the knob stays
     bit-identical."""
     k, K, S, B = 4, 6, 2, 256
-    cfg = RenderConfig(stream_block=B, use_pallas=True,
-                       pallas_interpret=True, stream_update_rate=k)
+    cfg = RenderConfig(stream_block=B, stream_update_rate=k)
     azs = np.linspace(10, 200, K * S).reshape(K, S).astype(np.float32)
     els = np.zeros((K, S), np.float32)
     blocks = rng.standard_normal((K, S, B)).astype(np.float32)

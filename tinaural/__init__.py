@@ -1,6 +1,6 @@
-"""tinaural — TPU-native binaural audio synthesis.
+"""tinaural — binaural audio synthesis in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
+A from-scratch JAX/XLA rebuild of the capability surface of
 `mbjd/binaural-audio-synthesis` (see SURVEY.md; the reference mount was
 empty at survey time — SURVEY.md §0 — so the surface is reconstructed from
 the driver's BASELINE.json). Public entry points follow BASELINE.json:5:

@@ -37,36 +37,19 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--block", type=int, default=1024, help="block size (pow2)")
     p.add_argument("--cpu-golden", action="store_true",
                    help="render with the NumPy golden reference instead of JAX")
-    p.add_argument("--no-pallas", action="store_true",
-                   help="disable the fused Pallas kernels (default: on for "
-                        "TPU backends, automatic jnp fallback on CPU)")
     p.add_argument("--filter-path", choices=["matmul", "hybrid", "fft"],
                    default="matmul",
-                   help="filter-assembly implementation (same math; "
-                        "matmul = fastest on TPU)")
+                   help="filter-assembly implementation (same math)")
     p.add_argument("--fft-pack", choices=["off", "fwd", "both"],
                    default="both",
                    help="two-for-one real-FFT packing (same math)")
     p.add_argument("--fft-impl", choices=["xla", "matmul"], default="xla",
                    help="packed-FFT implementation (matmul = two-stage "
-                        "Cooley-Tukey on the MXU; same math)")
-    p.add_argument("--kernel-precision", choices=["tri", "highest"],
-                   default="tri",
-                   help="fused-kernel matmul precision (tri = 3-pass "
-                        "split-bf16, ~100 dB and 2x faster; highest = "
-                        "full f32)")
-    p.add_argument("--no-fuse-epilogue", action="store_true",
-                   help="keep the irfft+OLA epilogue in XLA instead of "
-                        "the fused inverse-FFT kernel")
+                        "Cooley-Tukey as f32 matmuls; same math)")
     p.add_argument("--dir-rate", type=int, choices=[1, 2, 4, 8], default=1,
                    help="update the moving-source HRTF every Nth block "
                         "(directions snap to the group start; cuts the "
                         "per-block gather+assembly work by N)")
-    p.add_argument("--part-assembly", choices=["kernel", "xla"],
-                   default="kernel",
-                   help="BRIR filter assembly: in the partitioned "
-                        "kernel (default; 1.78x measured) or the "
-                        "packed-XLA fft chain (same math)")
 
 
 def _config(args) -> RenderConfig:
@@ -75,14 +58,10 @@ def _config(args) -> RenderConfig:
         apply_itd=not args.no_itd,
         apply_ild=not args.no_ild,
         block_size=args.block,
-        use_pallas=not getattr(args, "no_pallas", False),
         filter_path=getattr(args, "filter_path", "matmul"),
         fft_pack=getattr(args, "fft_pack", "both"),
         fft_impl=getattr(args, "fft_impl", "xla"),
-        kernel_precision=getattr(args, "kernel_precision", "tri"),
-        fuse_epilogue=not getattr(args, "no_fuse_epilogue", False),
         dir_rate=getattr(args, "dir_rate", 1),
-        part_assembly=getattr(args, "part_assembly", "kernel"),
     )
 
 
@@ -293,7 +272,7 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tinaural",
-                                 description="TPU-native binaural audio synthesis")
+                                 description="binaural audio synthesis in JAX")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("render", help="static render at one direction")
@@ -370,6 +349,9 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

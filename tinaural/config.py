@@ -2,7 +2,7 @@
 
 The reference (mbjd/binaural-audio-synthesis) exposes its knobs as function
 arguments / argparse flags (SURVEY.md §5 "Config / flag system"; the
-reference mount was empty at survey time, see SURVEY.md §0). The TPU rebuild
+reference mount was empty at survey time, see SURVEY.md §0). The JAX rebuild
 threads a single frozen dataclass through the public API instead: configs
 must be hashable so they can be `jax.jit` static arguments and never force
 recompilation beyond their own identity.
@@ -11,8 +11,6 @@ recompilation beyond their own identity.
 from __future__ import annotations
 
 import dataclasses
-import os
-from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,20 +40,15 @@ class RenderConfig:
       filter_path: how per-direction filter spectra are assembled — all
         three compute the same linear map (matrices are built from the
         NumPy oracle chain; see tinaural.ops.filters):
-        ``"matmul"`` (default, fastest measured): the fixed stages as
-        rank-factorized zoom matmuls (see ops/filters.py);
-        ``"hybrid"``: small MXU matmuls for the rfft_L/ramp/irfft+truncate
+        ``"matmul"`` (default): the fixed stages as rank-factorized zoom
+        matmuls (see ops/filters.py);
+        ``"hybrid"``: small matmuls for the rfft_L/ramp/irfft+truncate
         stages + one batched XLA rfft of the result;
         ``"fft"``: the explicit rfft→ramp→irfft→truncate→rfft chain.
       scene_chunk: sources rendered per lax.map step in the scene
-        renderer. Full vmap over 64+ sources materialises ~0.5 GB of
-        block spectra (measured 40x slowdown); chunks keep peak
-        intermediates small while still batching thousands of FFTs.
-      use_pallas: route filter assembly + the crossfaded spectral MAC
-        through the fused Pallas TPU kernel instead of plain jnp ops
-        (default ON: measured 1.4-2x the XLA chain on v5e). Ignored on
-        CPU backends unless ``pallas_interpret`` — the jnp path is a
-        permanent fallback (SURVEY.md §7 M6).
+        renderer. A full vmap over every source materialises all block
+        spectra of the scene at once; chunks keep peak intermediates
+        small while still batching thousands of FFTs.
       fft_pack: two-for-one real-FFT packing (tinaural.ops.fftpack) in
         the block renderers — ``"both"`` packs the up/down-ramped input
         rffts AND the two ears' inverse, ``"fwd"`` only the forward
@@ -63,26 +56,11 @@ class RenderConfig:
         rounding; a pure perf knob.
       fft_impl: how EVERY packed transform (forward pairs, packed rows,
         frame spectra, overlap-save tails, the ears' inverses) is
-        computed — ``"xla"`` (jnp.fft) or ``"matmul"`` (two-stage
-        Cooley–Tukey as MXU matmuls, tinaural.ops.mmfft; same math to
-        f32 rounding; measured a TIE with XLA on v5e — an escape hatch,
-        not a win). Unpacked transforms (``fft_pack="off"``) always use
-        jnp.fft.
-      fuse_epilogue: route the block renderers' irfft+OLA epilogue
-        through the fused Pallas inverse-FFT+OLA kernel (four-step
-        factorization in VMEM; tinaural.ops.pallas_kernels.fused_epilogue)
-        when eligible. Requires ``use_pallas``; exists separately so the
-        epilogue can be A/B-gated on chip independently of the
-        assembly+MAC kernel.
-      kernel_precision: matmul precision inside the fused kernels —
-        ``"tri"`` (default; 3-pass split-bf16: hi/lo decomposition
-        dropping only the lo·lo term, ~96 dB per matmul, ~100 dB
-        end-to-end) or ``"highest"`` (f32 via 6 bf16 MXU passes).
-        tri measured 2.1× the headline throughput on v5e (interleaved
-        medians 0.58 vs 1.23 ms, 4/5 rounds decisive) at 108.9 dB
-        agreement with highest on chip — far above the 60 dB gate.
-      pallas_interpret: run the Pallas kernel in interpreter mode (CPU
-        testing only).
+        computed — ``"xla"`` (jnp.fft, cuFFT on the GPU; default) or
+        ``"matmul"`` (two-stage Cooley–Tukey as f32 matmuls,
+        tinaural.ops.mmfft; same math to f32 rounding; an escape hatch
+        not yet measured on the GPU). Unpacked transforms
+        (``fft_pack="off"``) always use jnp.fft.
       out_length: ``"full"`` → N + taps - 1 output samples (linear
         convolution length), ``"same"`` → N samples (input length).
       dir_rate: assemble a moving source's filter every ``dir_rate``
@@ -95,11 +73,9 @@ class RenderConfig:
         the per-block semantics of rounds 1–3. At block 1024 / 44.1 kHz,
         dir_rate=4 updates the HRTF every 92.9 ms — for smooth paths
         this is below the audible threshold for moving-source update
-        artifacts while cutting the per-block gather+assembly work
-        (and its MXU passes) by dir_rate. Equivalence bound vs dir_rate=1
-        is path-speed-dependent: the filter lags the true direction by
-        at most (dir_rate−1)·block/sr seconds. Must divide into the
-        fused kernels' 32-row chunk: one of 1, 2, 4, 8.
+        artifacts. Equivalence bound vs dir_rate=1 is path-speed-
+        dependent: the filter lags the true direction by at most
+        (dir_rate−1)·block/sr seconds. One of 1, 2, 4, 8.
       stream_update_rate: within a streaming burst (`push_many` /
         `render_offline`), reassemble each stream's filter partitions
         only at burst-local pushes 0, k, 2k, …; the pushes in between
@@ -113,23 +89,12 @@ class RenderConfig:
         This is the streams analog of ``dir_rate``: at block 256 /
         44.1 kHz, k=4 updates head rotation every 23.2 ms — above
         typical head-tracker rates — while skipping the per-push
-        assembly work, which DOMINATES long-filter (BRIR) serving where
-        assembly is a full in-kernel FFT chain per push. Single-block
+        assembly work, an FFT chain per push in long-filter (BRIR)
+        serving. Single-block
         `push` always updates (the knob amortises within bursts; every
         burst begins with an update, so resumed/checkpointed streams
         never render a stale filter longer than k−1 blocks). One of
         1 (default), 2, 4, 8.
-      part_assembly: where the partitioned (BRIR) renderer assembles its
-        per-block filter partitions when the fft chain is in effect —
-        ``"kernel"`` (default; the kernel receives the raw gathered
-        (h, d, g) rows and runs the WHOLE chain in VMEM: rfft_L, ITD
-        ramp, gain, inverse-L, truncation, per-partition forward
-        four-steps — same linear map, derivation validated to 1e-14 in
-        scripts/derive_partitioned_inkernel_assembly.py; measured
-        11,970× RT official vs 3,035–3,220 on the XLA chain, 106.8 dB
-        on-chip parity, BENCH_NOTES round 4) or ``"xla"`` (the
-        packed-FFT chain; also the automatic fallback whenever the
-        kernel is ineligible).
     """
 
     sample_rate: int = 44100
@@ -141,30 +106,13 @@ class RenderConfig:
     crossfade: bool = True
     scene_chunk: int = 8
     filter_path: str = "matmul"
-    use_pallas: bool = True
-    fuse_epilogue: bool = True
-    kernel_precision: str = "tri"
-    pallas_interpret: bool = False
     fft_pack: str = "both"
     fft_impl: str = "xla"
     out_length: str = "full"
     dir_rate: int = 1
     stream_update_rate: int = 1
-    part_assembly: str = "kernel"
 
     def __post_init__(self):
-        # Escape hatch for CPU smoke runs of TPU-shaped entry points
-        # (bench.py --smoke): force every Pallas route into interpreter
-        # mode so kernel eligibility/routing code still executes without
-        # a Mosaic backend. Never set in production or the test suite
-        # (tests opt into interpret per-config).
-        if (os.environ.get("TINAURAL_FORCE_INTERPRET") == "1"
-                and not self.pallas_interpret):
-            object.__setattr__(self, "pallas_interpret", True)
-        if self.part_assembly not in ("xla", "kernel"):
-            raise ValueError(
-                f"part_assembly must be xla|kernel, "
-                f"got {self.part_assembly!r}")
         if self.interp not in ("nearest", "bilinear"):
             raise ValueError(f"interp must be nearest|bilinear, got {self.interp!r}")
         if self.out_length not in ("full", "same"):
@@ -178,10 +126,6 @@ class RenderConfig:
         if self.fft_impl not in ("xla", "matmul"):
             raise ValueError(
                 f"fft_impl must be xla|matmul, got {self.fft_impl!r}")
-        if self.kernel_precision not in ("highest", "tri"):
-            raise ValueError(
-                f"kernel_precision must be highest|tri, "
-                f"got {self.kernel_precision!r}")
         for name in ("block_size", "stream_block"):
             v = getattr(self, name)
             if v <= 0 or (v & (v - 1)) != 0:

@@ -8,7 +8,7 @@ of equally spaced azimuths (reference unreadable at survey time — SURVEY.md
 All of this module is host-side NumPy that runs once at load time. The
 render-time direction→index math lives in `tinaural.ops.interp` as jitted
 JAX; it consumes the dense padded arrays produced here (SURVEY.md §7 "Ragged
-KEMAR grid on TPU": solve raggedness at load time with dense padding +
+KEMAR grid": solve raggedness at load time with dense padding +
 per-ring azimuth counts).
 
 Conventions (matching the KEMAR documentation):

@@ -193,7 +193,13 @@ def _attr_str(ds, name: str, default: str) -> str:
 
 
 def _load_sofa(path: str) -> tuple[np.ndarray, SphericalGrid, int]:
-    import h5py
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading SOFA files needs h5py, which is not "
+            "installed; install it with `pip install tinaural[sofa]`"
+        ) from e
 
     with h5py.File(path, "r") as f:
         ir = np.asarray(f["Data.IR"])  # (M, 2, T)

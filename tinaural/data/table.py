@@ -1,7 +1,7 @@
 """The HRIR table: the framework's central data structure.
 
 The reference keeps HRIRs as per-direction NumPy arrays and indexes them in
-Python (SURVEY.md §3.1; reference unreadable at survey time, §0). The TPU
+Python (SURVEY.md §3.1; reference unreadable at survey time, §0). The JAX
 rebuild instead materialises ONE dense, padded device array per dataset —
 the "HBM-resident HRIR spectrum table" of BASELINE.json:5 — so that every
 render-time direction lookup is a `jnp.take` gather with precomputed index
@@ -22,17 +22,20 @@ weighted least-squares fit to the unwrapped phase slope.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
+import jax
 import numpy as np
-from flax import struct
 
 from .grids import SphericalGrid
 
 
-@struct.dataclass
+@dataclasses.dataclass(frozen=True)
 class HrirTable:
-    """Dense padded HRIR dataset + grid metadata (a JAX pytree).
+    """Dense padded HRIR dataset + grid metadata (a JAX pytree: the six
+    arrays are its leaves; ``sample_rate`` and ``decomposed`` are static
+    metadata, part of the jit cache key).
 
     Array fields may be NumPy (host) or jnp (device) arrays; renderers
     `device_put` the whole table once at construction.
@@ -55,8 +58,11 @@ class HrirTable:
     elevs: Any
     az_counts: Any
     valid: Any
-    sample_rate: int = struct.field(pytree_node=False, default=44100)
-    decomposed: bool = struct.field(pytree_node=False, default=False)
+    sample_rate: int = 44100
+    decomposed: bool = False
+
+    def replace(self, **kw) -> "HrirTable":
+        return dataclasses.replace(self, **kw)
 
     @property
     def n_elevs(self) -> int:
@@ -75,6 +81,12 @@ class HrirTable:
             elevs=np.asarray(self.elevs, dtype=np.float64),
             az_counts=np.asarray(self.az_counts, dtype=np.int64),
         )
+
+
+jax.tree_util.register_dataclass(
+    HrirTable,
+    data_fields=["h", "delays", "gains", "elevs", "az_counts", "valid"],
+    meta_fields=["sample_rate", "decomposed"])
 
 
 def estimate_delays(h: np.ndarray, f_lo: float = 300.0, f_hi: float = 6000.0,
@@ -215,11 +227,11 @@ ALIGN_GUARD = 8.0
 
 
 # Samples of headroom the effective filter (golden.effective_filter and
-# every TPU mirror) appends past the raw tap count, absorbing the ITD
+# every JAX mirror) appends past the raw tap count, absorbing the ITD
 # shift plus the fractional-delay kernel's tails. Defined HERE — the
 # bottom-most module of the import graph — and imported by
 # tinaural.ops.filters and tinaural.reference.golden so the three stay
-# one constant (round-2 advisor finding).
+# one constant.
 DELAY_PAD = 64
 
 # Headroom the render path gives a (delay − ALIGN_GUARD) shift before

@@ -98,12 +98,8 @@ def personalize_table(table: HrirTable, params: FitParams) -> HrirTable:
 def scene_loss(params: FitParams, table: HrirTable, xbs: jax.Array,
                dirs: jax.Array, target: jax.Array,
                config: RenderConfig) -> jax.Array:
-    """Mean-squared error of the personalized scene render vs target.
-
-    Always renders through the jnp path: the loss is differentiated and
-    pallas_call has no AD rule (the fused kernel is parity-gated against
-    the jnp path, so the optimum is the same)."""
-    config = config.replace(use_pallas=False)
+    """Mean-squared error of the personalized scene render vs target,
+    differentiated straight through the scene render."""
     y = _scene_fn(personalize_table(table, params), xbs, dirs, config)
     n = min(y.shape[-1], target.shape[-1])
     return jnp.mean((y[:, :n] - target[:, :n]) ** 2)

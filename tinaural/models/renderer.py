@@ -1,12 +1,18 @@
-"""TPU renderers (L4 of SURVEY.md §1: components C9–C11).
+"""Offline renderers (L4 of SURVEY.md §1: components C9–C11).
 
 The reference's render paths are Python loops over NumPy calls (SURVEY.md
 §3.2–3.4; reference unreadable at survey time, §0). Here each mode is ONE
 jitted device function (BASELINE.json:5): direction lookup is gather+lerp
-over the HBM-resident table, per-block filters assemble as a batched FFT,
-blocks and sources are `vmap` axes, and the overlap-add is the k-stream
-reshape reduction of `tinaural.ops.ola` — no Python in the hot path, and
-direction values are traced (changing az/el never recompiles).
+over the device-resident table, per-block filters assemble as batched
+matmuls or FFTs, blocks and sources are `vmap` axes, and the overlap-add is
+the k-stream reshape reduction of `tinaural.ops.ola` — no Python in the hot
+path, and direction values are traced (changing az/el never recompiles).
+
+Each render mode has one route, plain `jnp`/`lax` left to XLA (cuFFT for
+the transforms, cuBLAS for the f32 contractions). The layers carry stable
+`jax.named_scope` names so a profiler trace splits the device time by
+layer: ``hrtf_gather``, ``filter_assembly``, ``fwd_fft_mac``,
+``irfft_ola`` (and ``stream_step`` in `tinaural.models.streaming`).
 
 Numerical semantics are defined by `tinaural.reference.golden`; every
 public method here must match it to ≥60 dB SNR (BASELINE.json:5) — in
@@ -14,8 +20,6 @@ practice f32-vs-f64 precision, ~90+ dB.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -45,8 +49,7 @@ def _static_core(table: HrirTable, x: jax.Array, az: jax.Array, el: jax.Array,
     X = jnp.fft.rfft(x, n=n)
     if config.fft_pack != "off":
         # Three transforms instead of five: the ears' filter rffts share
-        # one complex fft, as do the two output irffts (round-2 VERDICT
-        # weak #4 — this path was the only one left unpacked).
+        # one complex fft, as do the two output irffts.
         H0, H1 = rfft_pair(h_eff[0], h_eff[1], n, impl=config.fft_impl)
         y0, y1 = irfft_pair(X * H0, X * H1, n, impl=config.fft_impl)
         return jnp.stack([y0, y1], axis=0)
@@ -54,32 +57,12 @@ def _static_core(table: HrirTable, x: jax.Array, az: jax.Array, el: jax.Array,
     return jnp.fft.irfft(X[None, :] * H, n=n)
 
 
-def _irfft_ears(Y: jax.Array, n_fft: int, config: RenderConfig) -> jax.Array:
-    """(nb, 2, F) spectra → (2, nb, n_fft) time blocks. With
-    config.fft_pack == "both", the two ears ride ONE packed complex ifft
-    (tinaural.ops.fftpack) — half the inverse-FFT cost of a batched
-    irfft, which profiling showed dominating the block renderers."""
-    if config.fft_pack == "both":
-        y0, y1 = irfft_pair(Y[:, 0], Y[:, 1], n_fft, impl=config.fft_impl)
-        return jnp.stack([y0, y1], axis=0)
-    return jnp.moveaxis(jnp.fft.irfft(Y, n=n_fft), 0, 1)
-
-
-def _kernel_precision(config: RenderConfig):
-    """RenderConfig.kernel_precision → the fused kernels' static arg."""
-    if config.kernel_precision == "tri":
-        return "tri"
-    return jax.lax.Precision.HIGHEST
-
-
 def _snap_dirs(dirs: jax.Array, dir_rate: int) -> jax.Array:
     """JAX mirror of `tinaural.reference.golden.snap_dirs` — THE
     RenderConfig.dir_rate semantics: block b takes the direction of its
     group start ⌊b/k⌋·k. A dir_rate=k render is by definition the
-    dir_rate=1 render of the snapped track, so every route (fused or
-    XLA) that snaps here is exactly golden-parity; the fused render
-    kernel additionally exploits the k-fold filter repetition to skip
-    the redundant gather+assembly work."""
+    dir_rate=1 render of the snapped track, so every route that snaps
+    here is exactly golden-parity."""
     if dir_rate == 1:
         return dirs
     nb = dirs.shape[-2]
@@ -87,71 +70,16 @@ def _snap_dirs(dirs: jax.Array, dir_rate: int) -> jax.Array:
     return jnp.take(dirs, idx, axis=-2)
 
 
-def _use_fused_epilogue(config: RenderConfig, n_fft: int, B: int) -> bool:
-    """Route the irfft+OLA epilogue through the fused Pallas kernel when
-    Pallas is enabled and the four-step layout fits (see
-    tinaural.ops.pallas_kernels.epilogue_ok)."""
-    if not (config.use_pallas and config.fuse_epilogue):
-        return False
-    if jax.default_backend() != "tpu" and not config.pallas_interpret:
-        return False
-    from ..ops.pallas_kernels import epilogue_ok
-
-    return epilogue_ok(n_fft, B)
-
-
-def _fused_ola_from_planes(Ysr: jax.Array, Ysi: jax.Array, n_fft: int,
-                           B: int, config: RenderConfig) -> jax.Array:
-    """Fused inverse-FFT+OLA from scrambled-half planes. Ysr/Ysi:
-    (nb, 2, Fs) or (S, nb, 2, Fs) → (..., 2, out), out = (nb−1)·B + n_fft.
-    Appends k−1 zero blocks per source to flush the final OLA tails (out
-    comes back at exactly (nb+k−1)·B)."""
-    from ..ops.pallas_kernels import fused_epilogue
-
-    k = n_fft // B
-    nb = Ysr.shape[-3]
-    nb2 = nb + k - 1
-    pad = [(0, 0)] * (Ysr.ndim - 3) + [(0, k - 1), (0, 0), (0, 0)]
-    Ysr, Ysi = jnp.pad(Ysr, pad), jnp.pad(Ysi, pad)
-    first1 = jnp.zeros((nb2,), jnp.float32).at[0].set(1.0)
-    prec = _kernel_precision(config)
-    if Ysr.ndim == 3:
-        return fused_epilogue(Ysr, Ysi, first1, B, n_fft,
-                              interpret=config.pallas_interpret,
-                              precision=prec)
-    S = Ysr.shape[0]
-    first = jnp.tile(first1, S)
-    y = fused_epilogue(Ysr.reshape(S * nb2, 2, -1),
-                       Ysi.reshape(S * nb2, 2, -1), first, B, n_fft,
-                       interpret=config.pallas_interpret, precision=prec)
-    return jnp.moveaxis(y.reshape(2, S, nb2 * B), 0, 1)  # (S, 2, out)
-
-
-def _fused_ola_ears(Y: jax.Array, n_fft: int, B: int,
-                    config: RenderConfig) -> jax.Array:
-    """`_ola_ears` through the fused inverse-FFT+OLA kernel. Y: (nb, 2, F)
-    or (S, nb, 2, F) natural-order block spectra → (..., 2, out)."""
-    from ..ops.pallas_kernels import scramble_spectra
-
-    Ysr, Ysi = scramble_spectra(Y, n_fft)  # (..., nb, 2, Fs)
-    return _fused_ola_from_planes(Ysr, Ysi, n_fft, B, config)
-
-
 def _ola_ears(Y: jax.Array, n_fft: int, B: int,
               config: RenderConfig) -> jax.Array:
     """Shared epilogue: (..., nb, 2, F) block spectra → (..., 2, out)
     overlap-added stereo, out = (nb−1)·B + n_fft.
 
-    Default route: the fused Pallas inverse-FFT+OLA kernel (the epilogue
-    was the largest XLA stage left in the headline call — ~0.65 ms of
-    1.3 ms). XLA fallback: with config.fft_pack == "both" the two ears
-    ride ONE packed complex ifft AND the overlap-add runs on the packed
-    complex time signal BEFORE the Re/Im split — OLA is linear, so
-    real/imag commute with the adds. Versus irfft_pair + stack + real OLA
-    this halves the OLA traffic and never materialises the (2, nb, n_fft)
-    stack."""
-    if _use_fused_epilogue(config, n_fft, B):
-        return _fused_ola_ears(Y, n_fft, B, config)
+    With config.fft_pack == "both" the two ears ride ONE packed complex
+    ifft AND the overlap-add runs on the packed complex time signal
+    BEFORE the Re/Im split — OLA is linear, so real/imag commute with the
+    adds. Versus irfft_pair + stack + real OLA this halves the OLA
+    traffic and never materialises the (2, nb, n_fft) stack."""
     if config.fft_pack == "both":
         z = irfft_pair_z(Y[..., 0, :], Y[..., 1, :], n_fft,
                          impl=config.fft_impl)  # (..., nb, n_fft) complex
@@ -185,23 +113,9 @@ def _filter_spectra(h, d, g, taps: int, n_fft: int,
     return jnp.fft.rfft(effective_filter(h, d, g, taps), n=n_fft)
 
 
-def _use_fused_kernel(config: RenderConfig, taps: int, n_fft: int) -> bool:
-    """Route through the fused Pallas assembly+MAC kernel when enabled,
-    on the matmul filter path, and its VMEM-resident constants fit (long
-    BRIRs overflow VMEM — they take the partitioned paths anyway)."""
-    if not config.use_pallas or config.filter_path != "matmul":
-        return False
-    if jax.default_backend() != "tpu" and not config.pallas_interpret:
-        return False  # Mosaic kernels are TPU-only; others use the jnp path
-    from ..ops import vmem
-
-    return vmem.fits_assembly_mac(taps, n_fft)
-
-
-def _trajectory_spectra_xla(table: HrirTable, xb: jax.Array, dirs: jax.Array,
-                            config: RenderConfig) -> jax.Array:
-    """Pure-XLA block spectra of the crossfaded OLA convolution (the
-    fallback for `_trajectory_spectra_batched`'s fused kernel).
+def _trajectory_spectra(table: HrirTable, xb: jax.Array, dirs: jax.Array,
+                        config: RenderConfig) -> jax.Array:
+    """Block spectra of the crossfaded OLA convolution.
     xb: (nb, B); dirs: (nb, 2) → (nb, 2, F)."""
     taps = table.h.shape[-1]
     B = xb.shape[-1]
@@ -209,159 +123,16 @@ def _trajectory_spectra_xla(table: HrirTable, xb: jax.Array, dirs: jax.Array,
     with jax.named_scope("hrtf_gather"):
         h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
             dirs[:, 0], dirs[:, 1])
-    Hc = _filter_spectra(h, d, g, taps, n_fft, config)  # (nb, 2, F)
-    if config.crossfade:
-        Hp = jnp.concatenate([Hc[:1], Hc[:-1]], axis=0)  # prev filter
-        Xu, Xd = _rfft_updown(xb, B, n_fft, config)
-        return Xu[:, None, :] * Hc + Xd[:, None, :] * Hp
-    X = rfft_rows(xb, n_fft, pack=config.fft_pack != "off",
-                  impl=config.fft_impl)
-    return X[:, None, :] * Hc
-
-
-def _use_fused_partitioned(config: RenderConfig, B: int, P: int) -> bool:
-    """Route the batched partitioned conv through its fused kernel: needs
-    Pallas on, the 2B-frame four-step layout, and the per-grid-step H
-    rows (O(P)) plus carries to fit VMEM (very long BRIRs keep the
-    memory-bounded XLA scan)."""
-    if not config.use_pallas:
-        return False
-    if jax.default_backend() != "tpu" and not config.pallas_interpret:
-        return False
-    n1p = (2 * B) // 128
-    if (2 * B) % 128 != 0 or n1p not in (4, 8, 16):
-        return False
-    from ..ops import vmem
-
-    return vmem.fits_partitioned(B, P)
-
-
-def _use_fused_block(config: RenderConfig, taps: int, n_fft: int,
-                     B: int) -> bool:
-    """Route through the fully-fused block step (in-kernel forward FFT +
-    assembly + MAC at scrambled bins) — needs Pallas enabled, the
-    four-step epilogue layout, a lane-aligned block size, and its own
-    VMEM fit. Deliberately NOT gated on `_use_fused_kernel`: that guards
-    the natural-order fallback kernel, whose dense MAp constant makes it
-    ineligible at 512 taps while the block kernels route the filter rfft
-    through the four-step FFT (use_filter_fft) and stay in budget."""
-    if not config.use_pallas or config.filter_path != "matmul":
-        return False
-    if jax.default_backend() != "tpu" and not config.pallas_interpret:
-        return False
-    if not _use_fused_epilogue(config, n_fft, B):
-        return False
-    if B % 128 != 0 or B > n_fft:
-        return False
-    from ..ops import vmem
-
-    return vmem.fits_block_step(taps, n_fft)
-
-
-# Per-table-row VMEM work (floats) of the in-kernel gather's one-hot
-# weight matrix: one float per chunk row, times the tri hi/lo splits
-# (x3) at the use site — scales with the launch chunk.
-
-
-def _use_fused_render(config: RenderConfig, taps: int, n_fft: int, B: int,
-                      S: int) -> bool:
-    """Route through the SINGLE-launch render kernel (spectra core +
-    inverse+OLA composed in VMEM — block spectra never exist in HBM).
-    Budget rationale lives in tinaural.ops.vmem (single audited source)."""
-    if not _use_fused_block(config, taps, n_fft, B):
-        return False
-    from ..ops import vmem
-
-    # Price at the MINIMUM launch chunk (32): route eligibility must not
-    # over-reject — _fused_render's own chunk ladder (96 → 64 → 32) then
-    # upgrades to whatever the budget admits for the actual launch.
-    return vmem.fits_block_render(taps, n_fft, B, S)
-
-
-def _fused_render(table: HrirTable, xbs: jax.Array, dirs: jax.Array,
-                  config: RenderConfig, n_fft: int,
-                  crossfade: bool | None = None,
-                  static_dirs: bool = False) -> jax.Array:
-    """Run the single-launch render kernel. xbs: (S, nb, B); dirs:
-    (S, nb, 2) → (2, out) with sources mixed.
-
-    When the padded HRIR table fits VMEM (typical measured sets: ~1 MB),
-    only the tiny per-block neighbor indices/weights go to the kernel and
-    the 4-neighbor gather+lerp runs in-kernel as a weighted one-hot
-    matmul — no XLA gather, no HBM h-row traffic. Oversize tables (dense
-    SOFA grids) fall back to the XLA gather feeding the same kernel."""
-    from ..ops import vmem
-    from ..ops.interp import direction_weights
-    from ..ops.pallas_kernels import (_GATHER_MAX_ROWS, fused_block_render,
-                                     gather_tables)
-
-    taps = table.h.shape[-1]
-    S, nb, B = xbs.shape
-    E, A = table.h.shape[0], table.h.shape[1]
-    rows_p = -(-(E * A) // 128) * 128
-    cf = config.crossfade if crossfade is None else crossfade
-    # Kernel-level dir_rate: callers pass SNAPPED dirs (any divisor of
-    # the config rate preserves the snapped values, so the unique-filter
-    # slicing is exact), capped at 4 so the per-grid-step unique rows
-    # stay at the 8-row f32 tile minimum. Static scenes (per-source
-    # constant dirs) always qualify: every block's filter is identical,
-    # so assembling every 4th is bit-identical regardless of dir_rate.
-    if static_dirs:
-        k_dir = 4
-    else:
-        k_dir = min(config.dir_rate, 4)
-    # Grid-step chunk (interleaved same-process on-chip A/Bs at the
-    # official workloads — serialized in-jit device ms):
-    #   S=1:  96 > 64 > 32 at both dir rates (dir1 1.911 vs 2.098 ms,
-    #         dir4 1.488 vs 1.695 — bigger matmul M-occupancy).
-    #   S=64 moving: dir1 keeps chunk 32 (1.690 ms vs 1.943 at 64,
-    #         1.783 at 96 — the (chunks, S) grid already fills the
-    #         MXU); dir4 takes 96 (1.240 ms vs 1.385 at 64, 1.567 at
-    #         32: the unique-assembly matmuls recover M = 2·chunk/k =
-    #         48 rows). Round 3's isolated-process A/B concluded dir4
-    #         LOST here (139k vs 182k) — cross-process swing; the
-    #         interleaved measurement reverses it. chunk 128 fails the
-    #         Mosaic compile (VMEM) — the 31 MiB render budget's
-    #         pre-filter matches, so the ladder below never probes it.
-    #   dir_rate=8 (all routes): a wash vs 4 (profile_r4_dir8.py) —
-    #         hence the k_dir cap at 4 above.
-    # The ladder degrades 96 → 64 → 32 by the VMEM pre-filter so big
-    # taps/n_fft configs keep the single-launch route at a chunk that
-    # fits rather than losing it (or the Mosaic fallback) outright.
-    big = None
-    if (S == 1 or k_dir == 4) and nb >= 64:
-        big = next((c for c in (96, 64)
-                    if vmem.fits_block_render(taps, n_fft, B, S, chunk=c)),
-                   None)
-    kw = dict(crossfade=cf, interpret=config.pallas_interpret,
-              precision=_kernel_precision(config), dir_rate=k_dir,
-              chunk=big)
-    flat = dirs.reshape(S * nb, 2)
-
-    taps_p = -(-taps // 128) * 128
-    table_bytes = rows_p * (2 * taps_p + 128 + 3 * (kw["chunk"] or 32)) * 4
-    if (rows_p <= _GATHER_MAX_ROWS
-            and vmem.fits_block_render(taps, n_fft, B, S,
-                                       extra_bytes=table_bytes,
-                                       chunk=kw["chunk"])):
-        eidx, aidx, wts = jax.vmap(lambda a, e: direction_weights(
-            table.elevs, table.az_counts, a, e, config.interp))(
-                flat[:, 0], flat[:, 1])
-        idx = (eidx * A + aidx).astype(jnp.float32).reshape(S, nb, 4)
-        ht, dg = gather_tables(table.h, table.delays, table.gains, taps,
-                               n_fft)
-        return fused_block_render(
-            None, None, None, xbs, taps, n_fft,
-            idx=idx, w=wts.astype(jnp.float32).reshape(S, nb, 4),
-            ht=ht, dg=dg,
-            apply_itd=bool(table.decomposed and config.apply_itd),
-            apply_ild=bool(table.decomposed and config.apply_ild), **kw)
-
-    h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
-        flat[:, 0], flat[:, 1])
-    return fused_block_render(
-        h.reshape(S, nb, 2, taps), d.reshape(S, nb, 2),
-        g.reshape(S, nb, 2), xbs, taps, n_fft, **kw)
+    with jax.named_scope("filter_assembly"):
+        Hc = _filter_spectra(h, d, g, taps, n_fft, config)  # (nb, 2, F)
+    with jax.named_scope("fwd_fft_mac"):
+        if config.crossfade:
+            Hp = jnp.concatenate([Hc[:1], Hc[:-1]], axis=0)  # prev filter
+            Xu, Xd = _rfft_updown(xb, B, n_fft, config)
+            return Xu[:, None, :] * Hc + Xd[:, None, :] * Hp
+        X = rfft_rows(xb, n_fft, pack=config.fft_pack != "off",
+                      impl=config.fft_impl)
+        return X[:, None, :] * Hc
 
 
 def _trajectory_core(table: HrirTable, xb: jax.Array, dirs: jax.Array,
@@ -372,170 +143,15 @@ def _trajectory_core(table: HrirTable, xb: jax.Array, dirs: jax.Array,
     B = xb.shape[-1]
     n_fft = next_pow2(B + taps + DELAY_PAD - 1)
     dirs = _snap_dirs(dirs, config.dir_rate)
-
-    if _use_fused_render(config, taps, n_fft, B, 1):
-        # North-star path (default): ONE Pallas launch from raw blocks to
-        # overlap-added stereo — in-kernel forward FFT, assembly, MAC,
-        # inverse FFT, OLA; no XLA FFT, no HBM spectra (BASELINE.json:5).
-        return _fused_render(table, xb[None], dirs[None], config, n_fft)
-    if _use_fused_block(config, taps, n_fft, B):
-        # Two-launch fused pipeline (spectra kernel → epilogue kernel).
-        Ysr, Ysi = _trajectory_spectra_scrambled(table, xb[None],
-                                                 dirs[None], config)
-        return _fused_ola_from_planes(Ysr[0], Ysi[0], n_fft, B, config)
-    if _use_fused_kernel(config, taps, n_fft):
-        # Fused assembly+MAC with the XLA forward/epilogue around it.
-        Y = _trajectory_spectra_batched(table, xb[None], dirs[None],
-                                        config)[0]
-    else:
-        Y = _trajectory_spectra_xla(table, xb, dirs, config)
+    Y = _trajectory_spectra(table, xb, dirs, config)
     with jax.named_scope("irfft_ola"):
         return _ola_ears(Y, n_fft, B, config)  # (2, out)
 
 
-# Public jitted entry points: each wraps its core in jit + the Mosaic
-# compile-failure fallback (tinaural.ops.vmem — on any Mosaic/VMEM failure
-# the call retries with use_pallas=False, which is the same linear map
-# through XLA; the byte estimates above remain the cheap pre-filter).
-from ..ops.vmem import with_xla_fallback  # noqa: E402  (after the gates)
-
-_static_fn = with_xla_fallback(_static_core, static_argnames=("config", "n"))
-
-
-def _trajectory_fn_core(table, xb, dirs, config):
-    return _trajectory_core(table, xb, dirs, config)
-
-
-_trajectory_fn = with_xla_fallback(_trajectory_fn_core)
-
-
-def _trajectory_spectra_batched(table: HrirTable, xbs: jax.Array,
-                                dirs: jax.Array, config: RenderConfig):
-    """Batched moving-source BLOCK SPECTRA through the fused kernel: xbs
-    (S, nb, B); dirs (S, nb, 2) → Y (S, nb, 2, F). Callers run
-    `_epilogue_batched` (independent renders) or sum over sources first
-    (scene mixdown — irfft/OLA are linear, so mixing in the frequency
-    domain makes the inverse-FFT cost per SCENE instead of per source).
-
-    The (source, block) axes are flattened into ONE kernel launch so the
-    assembly matmuls run at MXU-friendly batch sizes regardless of the
-    per-source block count (round-1's per-source assembly was the moving-
-    scene bottleneck: 64-src aggregate ≈ 1.1× the 1-src rate). The
-    `first` mask marks each source's block 0, which keeps the kernel's
-    previous-filter carry from leaking across source boundaries.
-    Callers must check `_use_fused_kernel` first.
-    """
-    from ..ops.pallas_kernels import fused_assembly_mac
-
-    taps = table.h.shape[-1]
-    S, nb, B = xbs.shape
-    n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-    flat = dirs.reshape(S * nb, 2)
-    h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
-        flat[:, 0], flat[:, 1])
-    xf = xbs.reshape(S * nb, B)
-    if config.crossfade:
-        Xu, Xd = _rfft_updown(xf, B, n_fft, config)
-    else:
-        Xu = rfft_rows(xf, n_fft, pack=config.fft_pack != "off",
-                       impl=config.fft_impl)
-        Xd = Xu
-    first = jnp.tile(
-        jnp.zeros((nb,), jnp.float32).at[0].set(1.0), S)
-    Y = fused_assembly_mac(h, d, g, Xu, Xd, first, taps, n_fft,
-                           crossfade=config.crossfade,
-                           interpret=config.pallas_interpret,
-                           precision=_kernel_precision(config))
-    return Y.reshape(S, nb, 2, n_fft // 2 + 1)
-
-
-def _trajectory_spectra_scrambled(table: HrirTable, xbs: jax.Array,
-                                  dirs: jax.Array, config: RenderConfig):
-    """Batched moving-source block spectra through the FULLY-fused block
-    step (in-kernel forward FFT + assembly + MAC): xbs (S, nb, B); dirs
-    (S, nb, 2) → (Ysr, Ysi) (S, nb, 2, Fs) f32 planes in the scrambled-
-    half layout `fused_epilogue` consumes. Same flattened (source, block)
-    batching and `first`-mask semantics as `_trajectory_spectra_batched`;
-    callers must check `_use_fused_block` first."""
-    from ..ops.pallas_kernels import fused_block_step
-
-    taps = table.h.shape[-1]
-    S, nb, B = xbs.shape
-    n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-    flat = dirs.reshape(S * nb, 2)
-    h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
-        flat[:, 0], flat[:, 1])
-    first = jnp.tile(jnp.zeros((nb,), jnp.float32).at[0].set(1.0), S)
-    # Unique-filter fast path needs every source's span group-aligned in
-    # the flattened batch (k | nb); snapping alone (done by the callers)
-    # keeps the semantics at k = 1. Multi-source batches stay snap-only
-    # for the same measured reason as moving scenes (see _fused_render:
-    # small-M assembly matmuls erase the pass savings).
-    k_dir = min(config.dir_rate, 4) if S == 1 else 1
-    if nb % k_dir:
-        k_dir = 1
-    Ysr, Ysi = fused_block_step(h, d, g, xbs.reshape(S * nb, B), first,
-                                taps, n_fft, crossfade=config.crossfade,
-                                interpret=config.pallas_interpret,
-                                precision=_kernel_precision(config),
-                                dir_rate=k_dir)
-    Fs = Ysr.shape[-1]
-    return Ysr.reshape(S, nb, 2, Fs), Ysi.reshape(S, nb, 2, Fs)
-
-
-def _scene_spectra_fused(table: HrirTable, xbs: jax.Array, dirs: jax.Array,
-                         config: RenderConfig, n_fft: int):
-    """Whole-scene MIXED block spectra in one kernel launch (or, when the
-    per-source carry scratch would overflow VMEM at very large S, a scan
-    over mix-kernel super-chunks). xbs: (S, nb, B); dirs: (S, nb, 2) →
-    (Ysr, Ysi) (nb, 2, Fs) planes for `fused_epilogue`."""
-    from ..ops import vmem
-    from ..ops.pallas_kernels import _epilogue_dims, fused_block_step_mix
-
-    taps = table.h.shape[-1]
-    S, nb, B = xbs.shape
-    flat = dirs.reshape(S * nb, 2)
-    h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
-        flat[:, 0], flat[:, 1])
-    h = h.reshape(S, nb, 2, taps)
-    d = d.reshape(S, nb, 2)
-    g = g.reshape(S, nb, 2)
-
-    step = partial(fused_block_step_mix, taps=taps, n_fft=n_fft,
-                   crossfade=config.crossfade,
-                   interpret=config.pallas_interpret,
-                   precision=_kernel_precision(config))
-    if vmem.fits_block_mix(taps, n_fft, S):
-        return step(h, d, g, xbs)
-    # very large S: scan over source super-chunks that DO fit, mixing the
-    # plane partials (rare; S ≤ ~512 fits in one launch at default taps)
-    sc = 64
-    pad = (-S) % sc
-    if pad:
-        h = jnp.concatenate([h, jnp.zeros((pad, *h.shape[1:]), h.dtype)])
-        d = jnp.concatenate([d, jnp.zeros((pad, *d.shape[1:]), d.dtype)])
-        g = jnp.concatenate([g, jnp.ones((pad, *g.shape[1:]), g.dtype)])
-        xbs = jnp.concatenate(
-            [xbs, jnp.zeros((pad, *xbs.shape[1:]), xbs.dtype)])
-    n = (S + pad) // sc
-    resh = lambda z: z.reshape(n, sc, *z.shape[1:])
-    Fs = _epilogue_dims(n_fft, B)[2]
-
-    def body(acc, args):
-        hr, dr, gr, xr = args
-        Ysr, Ysi = step(hr, dr, gr, xr)
-        return (acc[0] + Ysr, acc[1] + Ysi), None
-
-    zero = jnp.zeros((nb, 2, Fs), jnp.float32)
-    (Ysr, Ysi), _ = jax.lax.scan(
-        body, (zero, zero), (resh(h), resh(d), resh(g), resh(xbs)))
-    return Ysr, Ysi
-
-
-def _epilogue_batched(Y: jax.Array, B: int, n_fft: int,
-                      config: RenderConfig) -> jax.Array:
-    """(S, nb, 2, F) block spectra → (S, 2, out) via packed irfft + OLA."""
-    return _ola_ears(Y, n_fft, B, config)
+# NOTE: no donation on any entry point — callers (bench, tests, fit) reuse
+# their device-resident inputs across calls.
+_static_fn = jax.jit(_static_core, static_argnames=("config", "n"))
+_trajectory_fn = jax.jit(_trajectory_core, static_argnames=("config",))
 
 
 def _static_block_core(table: HrirTable, xb: jax.Array, dir2: jax.Array,
@@ -552,55 +168,39 @@ def _static_block_core(table: HrirTable, xb: jax.Array, dir2: jax.Array,
     B = xb.shape[-1]
     n_fft = next_pow2(B + table.h.shape[-1] + DELAY_PAD - 1)
     Y = _static_block_spectra(table, xb, dir2, config)
-    return _ola_ears(Y, n_fft, B, config)
+    with jax.named_scope("irfft_ola"):
+        return _ola_ears(Y, n_fft, B, config)
 
 
 def _static_block_spectra(table: HrirTable, xb: jax.Array, dir2: jax.Array,
                           config: RenderConfig) -> jax.Array:
     """Block spectra of `_static_block_core` before the inverse: (nb, 2, F).
     Lets the static scene renderer mix sources in the frequency domain
-    (one irfft+OLA per scene chunk instead of per source)."""
+    (one irfft+OLA per scene instead of per source)."""
     taps = table.h.shape[-1]
     B = xb.shape[-1]
     n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-    h, d, g = interpolate(table, dir2[0], dir2[1], config)
-    H = _filter_spectra(h, d, g, taps, n_fft, config)  # (2, F)
-    X = rfft_rows(xb, n_fft, pack=config.fft_pack != "off",
-                  impl=config.fft_impl)
-    return X[:, None, :] * H[None]
+    with jax.named_scope("hrtf_gather"):
+        h, d, g = interpolate(table, dir2[0], dir2[1], config)
+    with jax.named_scope("filter_assembly"):
+        H = _filter_spectra(h, d, g, taps, n_fft, config)  # (2, F)
+    with jax.named_scope("fwd_fft_mac"):
+        X = rfft_rows(xb, n_fft, pack=config.fft_pack != "off",
+                      impl=config.fft_impl)
+        return X[:, None, :] * H[None]
 
 
-def _static_block_fn_core(table, xb, dir2, config):
-    return _static_block_core(table, xb, dir2, config)
-
-
-_static_block_fn = with_xla_fallback(_static_block_fn_core)
+_static_block_fn = jax.jit(_static_block_core, static_argnames=("config",))
 
 
 def _scene_static_core(table, xbs, dirs, config):
     """Static-direction scene: xbs (S, nb, B); dirs (S, 2) → (2, out).
     Sources mix in the frequency domain (irfft/OLA are linear): chunk
     spectra accumulate in a (nb, 2, F) scan carry and the irfft+OLA
-    epilogue runs ONCE per scene (round 2 ran it once per chunk — eight
-    serialized epilogues at S=64, the dominant non-linear-scaling cost)."""
+    epilogue runs ONCE per scene."""
     S, nb, B = xbs.shape
     taps = table.h.shape[-1]
     n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-
-    if _use_fused_block(config, taps, n_fft, B):
-        # Static directions through the scene kernels: constant per-block
-        # filters make the crossfade the identity, so the non-crossfade
-        # kernel (no Hermitian-mirror path, single MAC) is exact.
-        # Re-assembling the filter per block costs MXU FLOPs the
-        # one-launch structure more than buys back (A/B'd on chip).
-        dirs_b = jnp.broadcast_to(dirs[:, None, :], (S, nb, 2))
-        if _use_fused_render(config, taps, n_fft, B, S):
-            return _fused_render(table, xbs, dirs_b, config, n_fft,
-                                 crossfade=False, static_dirs=True)
-        Ysr, Ysi = _scene_spectra_fused(
-            table, xbs, dirs_b, config.replace(crossfade=False), n_fft)
-        return _fused_ola_from_planes(Ysr, Ysi, n_fft, B, config)
-
     xc, dc = _chunked_sources(xbs, dirs, config.scene_chunk)
 
     def chunk(acc, args):
@@ -611,10 +211,11 @@ def _scene_static_core(table, xbs, dirs, config):
 
     zero = jnp.zeros((nb, 2, n_fft // 2 + 1), jnp.complex64)
     Y, _ = jax.lax.scan(chunk, zero, (xc, dc))
-    return _ola_ears(Y, n_fft, B, config)
+    with jax.named_scope("irfft_ola"):
+        return _ola_ears(Y, n_fft, B, config)
 
 
-_scene_static_fn = with_xla_fallback(_scene_static_core)
+_scene_static_fn = jax.jit(_scene_static_core, static_argnames=("config",))
 
 
 def _partitioned_core(table: HrirTable, xb: jax.Array, dirs: jax.Array,
@@ -637,10 +238,7 @@ def _partitioned_core(table: HrirTable, xb: jax.Array, dirs: jax.Array,
                                    partitioned_mac, shifted_stack, tail_pair)
 
     # dir_rate holds on this route too (golden.snap_dirs is the
-    # route-independent definition). Snapping gives the semantics; on
-    # the in-kernel-assembly route the unique-filter fast path below
-    # additionally cuts the assembly work k-fold (round 5 — the
-    # partitioned analog of the block kernels' dir_rate slicing).
+    # route-independent definition).
     dirs = _snap_dirs(dirs, config.dir_rate)
 
     taps = table.h.shape[-1]
@@ -648,64 +246,17 @@ def _partitioned_core(table: HrirTable, xb: jax.Array, dirs: jax.Array,
     P = -(-(taps + DELAY_PAD) // B)
 
     # Long-filter assembly routes to the explicit fft chain past 4
-    # partitions — the shared deferral rule (measurements in its
-    # docstring) lives in ops.filters so this route and the streaming
-    # step can never desynchronize.
+    # partitions — the shared deferral rule lives in ops.filters so this
+    # route and the streaming step can never desynchronize.
     use_mm = use_matmul_partitions(config.filter_path, P)
     pack = config.fft_pack != "off"
 
-    from ..ops import vmem
+    with jax.named_scope("hrtf_gather"):
+        h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
+            dirs[:, 0], dirs[:, 1])
 
-    fusedp = _use_fused_partitioned(config, B, P)
-    use_asm = (fusedp and not use_mm and config.part_assembly == "kernel"
-               and vmem.fits_partitioned_asm(taps, B, P))
-    # Unique-filter fast path (round-5): on the asm route with snapped
-    # dirs, gather and assemble only every k-th block's filter — the
-    # kernel expands the assembled rows k× before its conv body, which
-    # is bit-identical to dir_rate=1 on the snapped track (the defined
-    # semantics). Cap 4 keeps chunk/k at the 8-row f32 tile minimum.
-    k_dir = min(config.dir_rate, 4) if use_asm else 1
-    if nb % k_dir:
-        k_dir = 1
-    gdirs = dirs[::k_dir] if k_dir > 1 else dirs
-    h, d, g = jax.vmap(lambda a, e: interpolate(table, a, e, config))(
-        gdirs[:, 0], gdirs[:, 1])
-
-    if fusedp:
-        # Fused path: everything after assembly — frames, forward FFT,
-        # the delay-line MAC, the crossfade pair, the inverse tails —
-        # runs in one Pallas launch (round-3 VERDICT #4). With
-        # part_assembly="kernel" the fft-chain assembly itself moves
-        # in-kernel too (round-4: the XLA assembly measured ~14× the
-        # kernel's own time at the 2048-tap shape): XLA keeps only
-        # rfft_L(h)·ramp·gain, the kernel does the inverse-L,
-        # truncation, P segment transforms, and the scramble in VMEM.
-        from ..ops.pallas_kernels import (fused_partitioned_assembled,
-                                          fused_partitioned_step,
-                                          scramble_spectra)
-
-        first = jnp.zeros((nb,), jnp.float32).at[0].set(1.0)
-        if use_asm:
-            # XLA supplies only the gathered (h, d, g) rows; the whole
-            # assembly chain (rfft_L, ramp·gain, inverse-L, truncation,
-            # P partition transforms) runs inside the kernel.
-            return fused_partitioned_assembled(
-                xb, h, d, g, first, taps, B, P,
-                crossfade=config.crossfade,
-                interpret=config.pallas_interpret,
-                precision=_kernel_precision(config),
-                dir_rate=k_dir)
-
-        Hb = jax.vmap(lambda hh, dd, gg: filter_partitions(
-            hh, dd, gg, taps, B, use_matmul=use_mm, pack=pack,
-            impl=config.fft_impl))(h, d, g)  # (nb, P, 2, F2)
-        Hsr, Hsi = scramble_spectra(Hb, 2 * B)  # (nb, P, 2, Fs2)
-        return fused_partitioned_step(
-            xb, Hsr.reshape(nb, -1), Hsi.reshape(nb, -1), first, B, P,
-            crossfade=config.crossfade, interpret=config.pallas_interpret,
-            precision=_kernel_precision(config))
-
-    X = frame_spectra(xb, pack=pack, impl=config.fft_impl)  # (nb, F)
+    with jax.named_scope("fwd_fft_mac"):
+        X = frame_spectra(xb, pack=pack, impl=config.fft_impl)  # (nb, F)
 
     if P > 8:
         # Long-BRIR regime: materialising all (nb, P, 2, F) partitions and
@@ -716,28 +267,31 @@ def _partitioned_core(table: HrirTable, xb: jax.Array, dirs: jax.Array,
         # and accumulates its block-shifted contribution.
         Yn, Yp = _partitioned_scan(table, X, h, d, g, taps, B, P, config)
     else:
-        Hb = jax.vmap(lambda hh, dd, gg: filter_partitions(
-            hh, dd, gg, taps, B, use_matmul=use_mm, pack=pack,
-            impl=config.fft_impl))(h, d, g)  # (nb, P, 2, F)
-        Xs = shifted_stack(X, P)  # (P, nb, F)
-        Yn = partitioned_mac(Xs, Hb)
-        Yp = None
-        if config.crossfade:
-            Hprev = jnp.concatenate([Hb[:1], Hb[:-1]], axis=0)
-            Yp = partitioned_mac(Xs, Hprev)
+        with jax.named_scope("filter_assembly"):
+            Hb = jax.vmap(lambda hh, dd, gg: filter_partitions(
+                hh, dd, gg, taps, B, use_matmul=use_mm, pack=pack,
+                impl=config.fft_impl))(h, d, g)  # (nb, P, 2, F)
+        with jax.named_scope("fwd_fft_mac"):
+            Xs = shifted_stack(X, P)  # (P, nb, F)
+            Yn = partitioned_mac(Xs, Hb)
+            Yp = None
+            if config.crossfade:
+                Hprev = jnp.concatenate([Hb[:1], Hb[:-1]], axis=0)
+                Yp = partitioned_mac(Xs, Hprev)
 
-    if config.crossfade:
-        if config.fft_pack == "both":
-            yn, yp = tail_pair(Yn, Yp, B, impl=config.fft_impl)  # 2 iffts
+    with jax.named_scope("irfft_ola"):
+        if config.crossfade:
+            if config.fft_pack == "both":
+                yn, yp = tail_pair(Yn, Yp, B, impl=config.fft_impl)  # 2 iffts
+            else:
+                yn = overlap_save_tail(Yn, B)
+                yp = overlap_save_tail(Yp, B)
+            w = (jnp.arange(B, dtype=yn.dtype) + 0.5) / B
+            y = w * yn + (1.0 - w) * yp
         else:
-            yn = overlap_save_tail(Yn, B)
-            yp = overlap_save_tail(Yp, B)
-        w = (jnp.arange(B, dtype=yn.dtype) + 0.5) / B
-        y = w * yn + (1.0 - w) * yp
-    else:
-        y = overlap_save_tail(Yn, B, pack=config.fft_pack == "both",
-                              impl=config.fft_impl)
-    return jnp.moveaxis(y, 1, 0).reshape(2, nb * B)
+            y = overlap_save_tail(Yn, B, pack=config.fft_pack == "both",
+                                  impl=config.fft_impl)
+        return jnp.moveaxis(y, 1, 0).reshape(2, nb * B)
 
 
 def _partitioned_scan(table, X, h, d, g, taps: int, B: int, P: int,
@@ -750,8 +304,8 @@ def _partitioned_scan(table, X, h, d, g, taps: int, B: int, P: int,
     (`ramped_spectrum_planes`) and the p-th slice of the partition zoom
     matrix, or (filter_path == "fft") by slicing the materialised
     effective filter and taking one small rfft per step, so the fft
-    escape hatch stays available in the long-BRIR regime (round-1
-    advisor finding) — the full (nb, P, 2, F) tensor never exists.
+    escape hatch stays available in the long-BRIR regime — the full
+    (nb, P, 2, F) tensor never exists.
     """
     from ..ops.filters import (_effective_filter_packed,
                                _partition_zoom_matrices, effective_filter,
@@ -797,115 +351,65 @@ def _partitioned_scan(table, X, h, d, g, taps: int, B: int, P: int,
     return Yn, Yp
 
 
-def _partitioned_fn_core(table, xb, dirs, config):
-    return _partitioned_core(table, xb, dirs, config)
-
-
-_partitioned_fn = with_xla_fallback(_partitioned_fn_core)
+_partitioned_fn = jax.jit(_partitioned_core, static_argnames=("config",))
 
 
 def _batch_core(table, xbs, dirs, config):
     """Batch of independent renders (NO mixdown): xbs (S, nb, B), dirs
     (S, nb, 2) → (S, 2, out). Serving-mode batching: many files/requests
-    per device dispatch."""
+    per device dispatch, config.scene_chunk renders per `lax.map` step."""
     S = xbs.shape[0]
-    taps = table.h.shape[-1]
-    B = xbs.shape[-1]
-    n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-    dirs = _snap_dirs(dirs, config.dir_rate)
-    fusedb = _use_fused_block(config, taps, n_fft, B)
-    fused = _use_fused_kernel(config, taps, n_fft)
-
-    if fusedb:
-        # Fully-fused serving path: ALL (request, block) rows in one
-        # kernel launch + one batched epilogue launch — no chunk scan
-        # (the per-chunk serialization existed to bound XLA's complex
-        # spectra intermediates; the f32 plane pipeline doesn't need it).
-        Ysr, Ysi = _trajectory_spectra_scrambled(table, xbs, dirs, config)
-        return _fused_ola_from_planes(Ysr, Ysi, n_fft, B, config)
-
     xc, dc = _chunked_sources(xbs, dirs, config.scene_chunk)
 
     def chunk(args):
         xb, dr = args
-        if fused:
-            Y = _trajectory_spectra_batched(table, xb, dr, config)
-            return _epilogue_batched(Y, B, n_fft, config)
-        # pure-XLA fallback (non-matmul filter paths): the vmapped core
-        # must NOT reach the fused epilogue — vmap over the fused
-        # kernels is forbidden (their OLA carries grid state); the
-        # sanctioned batching is the flattened `first`-mask form the
-        # fused branch above uses (round-5 review finding).
-        cfg_v = (config.replace(fuse_epilogue=False)
-                 if _use_fused_epilogue(config, n_fft, B) else config)
         return jax.vmap(
-            lambda b, d: _trajectory_core(table, b, d, cfg_v))(xb, dr)
+            lambda b, d: _trajectory_core(table, b, d, config))(xb, dr)
 
     y = jax.lax.map(chunk, (xc, dc))  # (n_chunks, ch, 2, out)
     return y.reshape(-1, *y.shape[2:])[:S]
 
 
-_batch_fn = with_xla_fallback(_batch_core)
+_batch_fn = jax.jit(_batch_core, static_argnames=("config",))
 
 
 def _scene_core(table, xbs, dirs, config):
     """Batched scene render + stereo mixdown. xbs: (S, nb, B); dirs:
     (S, nb, 2) → (2, out).
 
-    Default (fully-fused) route: the WHOLE scene's spectra — forward FFT,
-    per-block filter assembly, crossfaded MAC, and the mixdown over
-    sources — run in ONE `fused_block_step_mix` launch, followed by one
-    fused inverse+OLA epilogue (round-2 VERDICT weak #1: the previous
-    chunked lax.scan serialized 8 kernel launches and the mixdown).
-
-    XLA / natural-order-kernel fallback: sources go config.scene_chunk at
-    a time under lax.scan — a full vmap over 64 sources materialises
-    ~0.5 GB of block spectra (measured: 40× per-block slowdown) — with
-    chunk spectra mixing down in the frequency domain into the scan carry
-    and one irfft+OLA epilogue per scene. The source axis is the same
-    axis `tinaural.parallel` shards across devices (BASELINE.json:10)."""
+    Sources go config.scene_chunk at a time under lax.scan — a full vmap
+    over every source materialises S·nb·2·F complex block spectra at once
+    — with chunk spectra mixing down in the frequency domain into the
+    scan carry and one irfft+OLA epilogue per scene. The source axis is
+    the same axis `tinaural.parallel` shards across devices
+    (BASELINE.json:10)."""
     dirs = _snap_dirs(dirs, config.dir_rate)
     taps = table.h.shape[-1]
     nb, B = xbs.shape[1], xbs.shape[-1]
     n_fft = next_pow2(B + taps + DELAY_PAD - 1)
-    fusedb = _use_fused_block(config, taps, n_fft, B)
-    fused = _use_fused_kernel(config, taps, n_fft)
-
-    if _use_fused_render(config, taps, n_fft, B, xbs.shape[0]):
-        # Whole scene — spectra, mixdown, inverse, OLA — in ONE launch.
-        return _fused_render(table, xbs, dirs, config, n_fft)
-    if fusedb:
-        Ysr, Ysi = _scene_spectra_fused(table, xbs, dirs, config, n_fft)
-        return _fused_ola_from_planes(Ysr, Ysi, n_fft, B, config)
-
-    # chunk only on the fallback routes (the fused returns above never
-    # use the copies — _scene_static_core already orders it this way)
     xc, dc = _chunked_sources(xbs, dirs, config.scene_chunk)
 
     def chunk(acc, args):
         xb, dr = args
-        if fused:
-            Y = jnp.sum(_trajectory_spectra_batched(table, xb, dr, config),
-                        axis=0)  # frequency-domain mixdown
-        else:
-            Y = jnp.sum(jax.vmap(
-                lambda b, d: _trajectory_spectra_xla(table, b, d, config))(
-                    xb, dr), axis=0)
+        Y = jnp.sum(jax.vmap(
+            lambda b, d: _trajectory_spectra(table, b, d, config))(xb, dr),
+            axis=0)  # frequency-domain mixdown
         return acc + Y, None
 
     zero = jnp.zeros((nb, 2, n_fft // 2 + 1), jnp.complex64)
     Y, _ = jax.lax.scan(chunk, zero, (xc, dc))
-    return _ola_ears(Y, n_fft, B, config)
+    with jax.named_scope("irfft_ola"):
+        return _ola_ears(Y, n_fft, B, config)
 
 
-_scene_fn = with_xla_fallback(_scene_core)
+_scene_fn = jax.jit(_scene_core, static_argnames=("config",))
 
 
 def _chunked_sources(xbs, dirs, chunk: int):
     """Pad the source axis (traced, shapes static under jit) up to a
     multiple of the scene chunk and reshape into (n_chunks, ch, ...).
     Without padding, a non-divisible source count would fall back to
-    chunk=1 and serialize the whole render (measured 40×). Padded sources
+    chunk=1 and serialize the whole render. Padded sources
     are silent, so mixdowns are exact; `_batch_fn` slices them back off.
     Living inside the jitted functions means every caller — including
     `fit`'s training loss, which calls `_scene_fn` directly — gets
@@ -959,9 +463,8 @@ def _dedupe_sources(xs: np.ndarray, dirs: np.ndarray, config: RenderConfig):
 def _bucket_nb(nb: int) -> int:
     """Quarter-octave block-count bucket: variable-length signals hit
     O(log N) compiled shapes per render mode instead of one per distinct
-    length (round-2 advisor finding: on this deployment every distinct nb
-    paid a fresh 1–5 min uncached remote compile), at ≤ ~12% padded
-    compute. Padded blocks are silent, so they only append zeros past the
+    length (every distinct nb would pay a fresh compile), at ≤ ~12%
+    padded compute. Padded blocks are silent, so they only append zeros past the
     `_out_len` trim — outputs are unchanged."""
     if nb <= 8:
         return nb
@@ -1034,11 +537,11 @@ class BinauralRenderer:
     # -- entry point (b): static render
 
     # Long static renders route through the OLA block path: a monolithic
-    # next_pow2(N)-point FFT convolution was measured 3x slower than block
-    # convolution at the same lengths (6.6k vs 22k+ audio-sec/s — round-1
-    # VERDICT missing #4), and identical math (crossfade between equal
-    # filters reduces to plain convolution; see _static_block_core). Short
-    # renders stay on the direct path: fewer dispatches, no OLA overhead.
+    # next_pow2(N)-point FFT convolution grows its transform with the
+    # signal, while block convolution keeps it at one block's n_fft, and
+    # the math is identical (crossfade between equal filters reduces to
+    # plain convolution; see _static_block_core). Short renders stay on
+    # the direct path: fewer dispatches, no OLA overhead.
     STATIC_BLOCK_THRESHOLD_BLOCKS = 8
 
     def render(self, x, az: float, el: float) -> jax.Array:
@@ -1141,9 +644,7 @@ class BinauralRenderer:
         ``dedupe`` (default on): sources whose SNAPPED direction tracks
         are identical are pre-mixed on the host and rendered once —
         exact by linearity (the per-direction effective FIR is the same,
-        so conv(x₁)+conv(x₂) = conv(x₁+x₂)), and the only FLOP cut left
-        on the compute-bound scene path (round-4 roofline: 78% of bf16
-        MXU peak — scheduling is exhausted). Choirs/ambiences with S
+        so conv(x₁)+conv(x₂) = conv(x₁+x₂)). Choirs/ambiences with S
         sources in U direction groups pay U/S of the gather+assembly+MAC
         work; fully-distinct scenes pay one O(S·nb) host sort. The
         deduped source count is bucketed to a multiple of scene_chunk so

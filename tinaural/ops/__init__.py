@@ -1,5 +1,5 @@
 """Jitted JAX ops (L2/L3 of SURVEY.md §1): lookup, filters, OLA, FFT
-helpers, Pallas kernels (the kernels are reached via RenderConfig)."""
+helpers."""
 
 from .fftpack import irfft_pair, rfft_pair
 from .filters import DELAY_PAD, delay_ramp, effective_filter, next_pow2

@@ -1,7 +1,7 @@
 """Two-for-one real-FFT packing (classic Cooley two-channel trick).
 
-XLA's TPU rfft/irfft lower to full complex FFTs plus fixups, so a batched
-pair of real transforms costs two complex FFTs. The render paths always
+A batched pair of real transforms costs two FFT launches. The render
+paths always
 need real transforms in PAIRS — the up/down-ramped input spectra of the
 crossfaded block convolution, and the two ears of the inverse — so each
 pair packs into ONE complex FFT:
@@ -13,10 +13,11 @@ pair packs into ONE complex FFT:
             half-spectra A, B) → z = ifft(Z); irfft(A) = Re z,
             irfft(B) = Im z.
 
-Profiled on the v5e: a complex fft costs about the same as one rfft of
-the same length, so packing halves the dominant FFT cost of the
-trajectory/scene renderers. Exact to f32 rounding (unit tests pin it at
->120 dB against the unpacked transforms).
+Where a complex fft costs about the same as one rfft of the same length,
+packing halves the FFT cost of the trajectory/scene renderers (whether it
+does on cuFFT is for the benchmark to show: ``RenderConfig.fft_pack``).
+Exact to f32 rounding (unit tests pin it at >120 dB against the unpacked
+transforms).
 """
 
 from __future__ import annotations

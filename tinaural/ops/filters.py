@@ -90,17 +90,16 @@ def _rfft_matrix(taps: int, n_fft: int) -> np.ndarray:
 
 def filter_spectrum_mm(h: jax.Array, d: jax.Array, g: jax.Array,
                        taps: int, n_fft: int) -> jax.Array:
-    """Effective-filter spectrum at ``n_fft`` via the MXU zoom matmuls.
+    """Effective-filter spectrum at ``n_fft`` via the zoom matmuls.
 
     The per-block chain `h → rfft_L → (·ramp·gain) → irfft_L → trunc_Tpad
-    → rfft_nfft` spent ~60% of the trajectory render's per-block time in
-    its (small-)FFT stages. Everything around the direction-dependent
+    → rfft_nfft` is three small FFT stages. Everything around the
+    direction-dependent
     diagonal is a fixed R-linear map applied to stacked [Re | Im] planes:
     `ramped_spectrum_planes` (M1 + diag), then MB (irfft_L + truncate,
     rank ≤ T_pad), then MA (rfft_nfft). Factoring through the T_pad time
-    domain costs ~16% fewer FLOPs than one fused (2F_L × 2F_n) matrix and
-    measured ~24% faster end-to-end (interleaved on-chip A/B, 136 dB
-    agreement). All matrices are generated by pushing basis vectors
+    domain costs ~16% fewer FLOPs than one fused (2F_L × 2F_n) matrix.
+    All matrices are generated by pushing basis vectors
     through the NumPy oracle chain, so semantics — including the
     truncation — are exactly `rfft(effective_filter(...), n_fft)`.
 
@@ -110,8 +109,8 @@ def filter_spectrum_mm(h: jax.Array, d: jax.Array, g: jax.Array,
     MB = jnp.asarray(_hybrid_matrices(taps)[1])
     MA = jnp.asarray(_rfft_matrix(taps, n_fft))
 
-    # Precision.HIGHEST throughout: TPU matmuls default to bf16 multiplies,
-    # which was measured to cap parity at ~53 dB — below the 60 dB gate.
+    # Precision.HIGHEST throughout: without it the GPU runs these f32
+    # matmuls in TF32 (10-bit mantissa), far below the 60 dB parity gate.
     G2 = ramped_spectrum_planes(h, d, g, taps)  # (..., 2, 2FL)
     h_eff = jnp.matmul(G2, MB, preferred_element_type=jnp.float32,
                        precision=jax.lax.Precision.HIGHEST)  # (..., 2, Tp)
@@ -123,22 +122,19 @@ def filter_spectrum_mm(h: jax.Array, d: jax.Array, g: jax.Array,
 @lru_cache(maxsize=8)
 def _hybrid_matrices(taps: int) -> tuple[np.ndarray, np.ndarray]:
     """M1 (taps → 2F_L re/im spectra) and MB (2F_L → T_pad time domain:
-    irfft_L + truncate composed). Stage profiling showed the *small* FFTs
-    (the L=256 roundtrip) dominate the assembly cost on this backend while
-    large batched FFTs are cheap — so the hybrid path does the small maps
-    as matmuls and leaves the final rfft_nfft to XLA (the factorized
-    matmul path of `filter_spectrum_mm` measured faster on this chip, so
-    hybrid is an escape hatch, not the default)."""
+    irfft_L + truncate composed). The hybrid path does the small maps
+    (the L-point roundtrip) as matmuls and leaves the final rfft_nfft to
+    XLA; `filter_spectrum_mm` is the default."""
     M1, ht = _assembly_basis(taps)
     return M1.astype(np.float32), ht.astype(np.float32)
 
 
 def filter_spectrum_hybrid(h: jax.Array, d: jax.Array, g: jax.Array,
                            taps: int, n_fft: int) -> jax.Array:
-    """Effective-filter spectrum via small MXU matmuls + one batched rfft.
+    """Effective-filter spectrum via small matmuls + one batched rfft.
 
     Same linear map as `filter_spectrum_mm` / the FFT chain (matrices are
-    pushed through the NumPy oracle); fastest variant measured on TPU.
+    pushed through the NumPy oracle).
     h: (..., 2, taps); d, g: (..., 2) → (..., 2, n_fft//2+1) complex64.
     """
     MB = jnp.asarray(_hybrid_matrices(taps)[1])
@@ -195,7 +191,7 @@ def filter_partitions_mm(h: jax.Array, d: jax.Array, g: jax.Array,
 
     h: (2, taps); d, g: (2,) → (P, 2, block+1) complex64 — same map as
     golden.partition_filter(effective_filter(...)), per-block cost two
-    small MXU matmuls instead of three FFT stages.
+    small matmuls instead of three FFT stages.
     """
     F2 = block + 1
     m1, m2, P = _partition_zoom_matrices(taps, block)
@@ -211,12 +207,8 @@ def _effective_filter_packed(h: jax.Array, d: jax.Array, g: jax.Array,
                              taps: int, impl: str = "xla") -> jax.Array:
     """`effective_filter` with the two EARS packed into ONE complex FFT
     per transform (`fftpack.rfft_pair`/`irfft_pair`) — the same linear
-    map (127.6 dB agreement measured on chip), half the FFT count.
-
-    XLA's TPU FFT dominates the long-filter (BRIR) assembly chain
-    (measured: the rfft_4096 of the shapes alone is 1.6 ms of the 3.3 ms
-    assembly at the bench shape — docs/BENCH_NOTES.md round 4), so
-    halving it is the single biggest lever on that path.
+    map to f32 rounding, half the FFT count of the long-filter (BRIR)
+    assembly chain.
     h: (..., 2, taps); d, g: (..., 2) → (..., 2, taps + DELAY_PAD).
     """
     from .fftpack import irfft_pair, rfft_pair
@@ -236,14 +228,11 @@ def _effective_filter_packed(h: jax.Array, d: jax.Array, g: jax.Array,
 def use_matmul_partitions(filter_path: str, n_parts: int) -> bool:
     """THE matmul-vs-fft deferral rule for partitioned filter assembly —
     one definition shared by `renderer._partitioned_core` and
-    `streaming._filter_partitions_for` so the offline and streaming
-    routes can never desynchronize (round-5 review). "matmul" means
-    "fastest measured": past 4 partitions the partition zoom matrices
-    grow O(taps·FL) — hundreds of MB at BRIR lengths — and measured
-    SLOWER than the fft chain (2048-tap, B=512, interleaved on-chip
-    medians: fft 1.13 ms vs matmul 1.32 ms; B=256: 1.73 vs 1.84), so it
-    defers to fft in that regime; "hybrid" still forces the matmul
-    partitions."""
+    `streaming._filter_partitions` so the offline and streaming routes
+    can never desynchronize. Past 4 partitions the partition zoom
+    matrices grow O(taps·FL) — hundreds of MB at BRIR lengths — so
+    "matmul" defers to the fft chain in that regime; "hybrid" still
+    forces the matmul partitions."""
     return (filter_path == "hybrid"
             or (filter_path == "matmul" and n_parts <= 4))
 

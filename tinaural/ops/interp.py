@@ -84,9 +84,10 @@ def gather_filters(table: HrirTable, eidx: jax.Array, aidx: jax.Array,
     h4 = jnp.take(table.h.reshape(E * A, *table.h.shape[2:]), flat, axis=0)
     d4 = jnp.take(table.delays.reshape(E * A, 2), flat, axis=0)
     g4 = jnp.take(table.gains.reshape(E * A, 2), flat, axis=0)
-    # HIGHEST: these contractions lower to dot_general; TPU default bf16
-    # multiplies would put ~2^-8 relative error on the blended shape and
-    # a fraction-of-a-sample error on the blended delays.
+    # HIGHEST: these contractions lower to dot_general, which the GPU
+    # would otherwise run in TF32 (10-bit mantissa): ~2^-11 relative
+    # error on the blended shape and a sub-sample error on the blended
+    # delays.
     h = jnp.einsum("i,i...->...", w, h4,
                    precision=jax.lax.Precision.HIGHEST)  # (2, T)
     if table.decomposed and config.apply_itd:

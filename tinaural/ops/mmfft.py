@@ -1,9 +1,9 @@
-"""FFT as MXU matmuls (two-stage Cooley–Tukey), for TPU backends.
+"""FFT as dense matmuls (two-stage Cooley–Tukey) — the
+``RenderConfig.fft_impl="matmul"`` alternative to `jnp.fft`.
 
-XLA's TPU fft/ifft measured as the dominant cost of the block renderers
-even after two-for-one packing. A power-of-two N factors as N = N1·N2
-(N1 = 128 where possible, so the big stage contracts K = 2·N1 = 256 at
-full MXU utilisation):
+Not the default: `jnp.fft` (cuFFT on the GPU) is. A power-of-two N
+factors as N = N1·N2 (N1 = 128 where possible, so the big stage
+contracts K = 2·N1 = 256):
 
   X[k1 + N1·k2] = Σ_{n2} W_N^{n2 k1} (Σ_{n1} x[N2 n1 + n2] W_N1^{n1 k1})
                   · W_N2^{n2 k2}
@@ -12,7 +12,7 @@ Complex data travels as stacked [Re | Im] planes and each complex matmul
 is ONE real matmul against the block matrix [[Wr, Wi], [−Wi, Wr]] — the
 same layout trick as the assembly zoom matrices. Total work is
 N·(N1+N2) complex MACs per row (≈ 295k for N=2048) — ~6× an FFT's
-butterfly count but on the MXU instead of XLA's FFT lowering.
+butterfly count, as matmuls instead of XLA's FFT lowering.
 
 Matrices are generated from the NumPy transforms (f64, rounded to f32),
 so semantics match `np.fft.fft`/`ifft` to f32 precision. `fft_planes`

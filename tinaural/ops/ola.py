@@ -3,7 +3,7 @@ hard-part 3).
 
 Naive OLA scatter-adds every block's n_fft-long tail at hop offsets —
 `out.at[b*hop : b*hop+n_fft].add(...)` per block either serialises or
-builds a huge scatter. The standard TPU-friendly rewrite: with
+builds a huge scatter. The standard accelerator-friendly rewrite: with
 ``n_fft = k·hop`` (guaranteed here since both are powers of two), split
 each block into k hop-sized chunks; chunk j of block b lands at offset
 ``(b+j)·hop``, so all j-th chunks concatenate into ONE contiguous stream

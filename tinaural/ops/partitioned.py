@@ -5,7 +5,7 @@ one block at a time (`tinaural.models.streaming`). This module computes
 the SAME math with every block batched: all input frames FFT at once, the
 P-partition delay-line MAC becomes P block-shifted multiplies, all inverse
 FFTs batch. Wall-clock parallelism instead of a sequential scan — the
-TPU-native way to run streaming semantics offline — and, because the FFT
+batched way to run streaming semantics offline — and, because the FFT
 frame stays 2·B regardless of filter length, it renders arbitrarily long
 HRIRs/BRIRs without growing n_fft (the whole-filter block renderer needs
 n_fft ≥ B + T_eff − 1).
@@ -58,9 +58,9 @@ def partitioned_mac(Xs: jax.Array, H: jax.Array) -> jax.Array:
     """Delay-line MAC. Xs: (P, nb, F); H: (P, 2, F) static filter or
     (nb, P, 2, F) per-block filters → (nb, 2, F).
 
-    Precision.HIGHEST: this contraction lowers to a dot_general, and TPU
-    matmuls default to bf16 multiplies (~53 dB, under the 60 dB gate) —
-    this route is the XLA fallback no on-chip fused-parity gate covers."""
+    Precision.HIGHEST: this contraction lowers to a dot_general, which
+    the GPU would otherwise run in TF32 (10-bit mantissa), far under the
+    60 dB parity gate."""
     if H.ndim == 3:
         return jnp.einsum("pbf,pef->bef", Xs, H,
                           precision=jax.lax.Precision.HIGHEST)

@@ -2,7 +2,7 @@
 
 The full multi-chip "training step" used by `__graft_entry__.
 dryrun_multichip`: the scene forward runs source-sharded under `shard_map`
-(psum mixdown over ICI), the loss is computed on the replicated mixdown,
+(psum mixdown across devices), the loss is computed on the replicated mixdown,
 and `jax.grad` differentiates straight through the collective — psum's
 transpose replicates the cotangent, so every shard ends up with identical
 parameter gradients (data-parallel all-reduce for free).
@@ -26,16 +26,11 @@ from ..models.renderer import _scene_fn
 @partial(jax.jit, static_argnames=("config", "mesh"))
 def scene_loss_sharded(params: FitParams, table, xbs, dirs, target,
                        config: RenderConfig, mesh: Mesh) -> jax.Array:
-    # The loss DIFFERENTIATES through the render; pallas_call has no AD
-    # rule, so fitting always takes the jnp path (identical math — the
-    # kernel is parity-gated against it).
-    config = config.replace(use_pallas=False)
-
     # Zero-pad the source axis up to the shard count, exactly like
     # render_scene_sharded: a silent source renders zero for ANY params
     # (the render is linear in the audio), so it adds zero loss and zero
-    # gradient (round-5 review: non-divisible S used to die in
-    # shard_map's low-level sharding error at trace time).
+    # gradient (a non-divisible S would otherwise die in shard_map's
+    # low-level sharding error at trace time).
     n_src = mesh.shape["src"]
     pad = -xbs.shape[0] % n_src
     if pad:
@@ -52,10 +47,10 @@ def scene_loss_sharded(params: FitParams, table, xbs, dirs, target,
     )
     def loss_fn(params, table, xbs, dirs, target):
         ptable = personalize_table(table, params)
-        # same scene core as the single-chip scene_loss (round-5 review:
-        # a per-source _trajectory_core vmap materialized every source's
-        # block spectra — the exact blowup _scene_core's chunked scan
-        # exists to avoid — and ran one irfft+OLA epilogue per source)
+        # same scene core as the single-device scene_loss: a per-source
+        # _trajectory_core vmap would materialize every source's block
+        # spectra — the blowup _scene_core's chunked scan exists to
+        # avoid — and run one irfft+OLA epilogue per source
         y = _scene_fn(ptable, xbs, dirs, config)
         y = jax.lax.psum(y, "src")
         n = min(y.shape[-1], target.shape[-1])

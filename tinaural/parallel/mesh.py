@@ -6,7 +6,7 @@ The workload has exactly two shardable axes (SURVEY.md §5 "Long-context /
 sequence parallelism"):
 
   * ``"src"`` — scene sources (data parallel): embarrassingly parallel
-    per-source renders + a `psum` stereo mixdown over ICI.
+    per-source renders + a `psum` stereo mixdown across devices.
   * ``"blk"`` — signal blocks (the sequence axis): block convolutions are
     independent except the overlap-add tail, a nearest-neighbour
     `ppermute` halo — the convolutional analog of ring attention's
@@ -27,7 +27,7 @@ def make_mesh(shape: tuple[int, int] | None = None,
     """Build a 2-D (src, blk) mesh over the available devices.
 
     With ``shape=None``, all devices go to the source axis (the common
-    case: scenes have more sources than chips have neighbours).
+    case: scenes have more sources than a mesh has devices).
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

@@ -3,7 +3,7 @@
 `shard_map` over the mesh's ``"src"`` axis: each device renders its slice
 of the sources with the exact single-chip trajectory core
 (`tinaural.models.renderer._trajectory_core`), then the stereo mixdown is
-one `psum` over ICI — the only communication in the scene path
+one `psum` across devices — the only communication in the scene path
 (SURVEY.md §5 "Distributed communication backend").
 """
 
@@ -25,18 +25,10 @@ from ..ops.filters import DELAY_PAD
 
 @partial(jax.jit, static_argnames=("config", "mesh", "static_dirs"))
 def _scene_sharded_fn(table, xbs, dirs, config, mesh, static_dirs=False):
-    # The shard body IS the single-chip scene core (round-5 review: a
-    # copy of its routing ladder lived here and had already drifted —
-    # static scenes on the XLA fallback ran the moving-source path; the
-    # round-4 "multi-chip ran a generation behind single-chip" bug was
-    # the same drift mode). _scene_core/_scene_static_core price every
-    # gate at the shapes they are CALLED with, which inside shard_map
-    # are the per-shard shapes — so single-launch eligibility is
-    # evaluated per shard exactly as before, and future routing changes
-    # are inherited instead of re-implemented. The psum runs AFTER the
-    # core's irfft+OLA epilogue (2·out samples over ICI, not spectra).
-    # No with_xla_fallback wrapper in here: inside a shard_map trace the
-    # net cannot catch a Mosaic failure anyway (ops/vmem.py docstring).
+    # The shard body IS the single-device scene core, so a change to
+    # the scene math is inherited here instead of re-implemented (a copy
+    # would drift). The psum runs AFTER the core's irfft+OLA epilogue
+    # (2·out samples across devices, not spectra).
 
     @partial(
         shard_map,

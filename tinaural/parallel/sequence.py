@@ -3,10 +3,10 @@
 The reference scales signal length by overlap-add block partitioning
 (BASELINE.json:9,11); that IS its long-context story (SURVEY.md §5). On a
 mesh, the block axis shards across devices: every device renders its
-contiguous span of blocks with the single-chip math, and the ONLY
+contiguous span of blocks with the single-device math, and the ONLY
 cross-device dependency is each span's overlap-add tail (t_eff−1 < n_fft−B
 samples), which rides one nearest-neighbour `ppermute` to the next shard —
-a halo exchange over ICI, the convolutional analog of ring attention's
+a halo exchange between neighbouring devices, the convolutional analog of ring attention's
 neighbour hop. No all-to-all exists or is needed.
 
 The crossfade needs one more (tiny) halo: the first block of a shard
@@ -14,16 +14,13 @@ crossfades against the *previous* shard's last filter. Directions are
 replicated (a few KB), so each shard just looks one index left in the
 replicated array — no communication.
 
-``dir_rate`` snaps the direction track GLOBALLY here (round-5 review
-fix): each shard sees a locally shifted track (the prepended crossfade
+``dir_rate`` snaps the direction track GLOBALLY here: each shard sees a locally shifted track (the prepended crossfade
 dummy block plus its shard offset), so letting `_trajectory_core` snap
-per shard misaligned every group vs `golden.snap_dirs` (measured ~0 dB).
-The body therefore runs at dir_rate=1 on the pre-snapped track — the
-invariant's own equivalence (dir_rate=k ≡ dir_rate=1 on the snapped
-track), at the cost of the kernel's unique-filter FLOP cut on this path.
+per shard would misalign every group vs `golden.snap_dirs`. The body
+therefore runs at dir_rate=1 on the pre-snapped track — the invariant's
+own equivalence (dir_rate=k ≡ dir_rate=1 on the snapped track).
 
-``out_length="full"`` is honored (round-5 review fix): the final shard's
-overlap-add tail — previously computed and silently dropped — is
+``out_length="full"`` is honored: the final shard's overlap-add tail is
 returned as a second sharded output and appended on the host.
 """
 

@@ -1,13 +1,13 @@
 """Stream-sharded real-time serving (multi-chip BatchedStream).
 
 Streams are embarrassingly parallel — per-listener state never crosses
-listeners — so pod-scale serving shards the batched streaming step over
-the mesh's ``"src"`` axis with NO collectives at all: each device
-advances its slice of the listeners (through the fused streaming-step
-kernel on TPU backends) and keeps its slice of the state resident. This
+listeners — so multi-device serving shards the batched streaming step
+over the mesh's ``"src"`` axis with NO collectives at all: each device
+advances its slice of the listeners and keeps its slice of the state
+resident. This
 is the missing third leg of the sharding layer next to the psum scene
 mixdown and the ppermute OLA halo (SURVEY.md §5): production serving
-scales by adding chips, and checkpoint/resume keeps working because the
+scales by adding devices, and checkpoint/resume keeps working because the
 state stays the public `StreamState` pytree, just sharded.
 """
 

@@ -1,7 +1,7 @@
 """CPU golden reference (component C14 — SURVEY.md §2, §4.1).
 
 Pure NumPy float64, deliberately boring: this module DEFINES the numerical
-semantics of every render mode, and the TPU paths are validated against it
+semantics of every render mode, and the JAX paths are validated against it
 at ≥60 dB SNR (BASELINE.json:5 "the NumPy/scipy output" is the oracle;
 the reference repo itself was unreadable at survey time — SURVEY.md §0).
 
@@ -14,7 +14,7 @@ The five BASELINE.json configs map to:
   5. `GoldenStream` (small-block uniformly partitioned convolution with
      per-block HRTF updates).
 
-Shared numerical conventions (the TPU paths reproduce these exactly):
+Shared numerical conventions (the JAX paths reproduce these exactly):
   * Interpolation weights: bracket the elevation between rings, then
     interpolate within each ring at that ring's own azimuth spacing
     (with 0/360 wraparound), then lerp across rings. Aligned HRIR
@@ -130,7 +130,7 @@ def interpolate(table: HrirTable, az: float, el: float, config: RenderConfig):
 
 # DELAY_PAD — the extra FIR length reserved for the materialised
 # fractional delay — is imported from tinaural.data.table (single source
-# of truth shared with the loaders' clip threshold and the TPU assembly
+# of truth shared with the loaders' clip threshold and the JAX assembly
 # maps) and re-exported here for the tests/docs that cite the oracle.
 
 
@@ -193,7 +193,7 @@ def snap_dirs(dirs: np.ndarray, dir_rate: int) -> np.ndarray:
     ``dir_rate``-group — block b renders with dirs[(b // dir_rate) *
     dir_rate]. Everything else (crossfade, OLA, filters) is unchanged:
     a dir_rate=k render IS the dir_rate=1 render of the snapped track,
-    which is what makes the fast TPU path (assemble only the unique
+    which is what makes a fast path (assemble only the unique
     filters) provably identical rather than approximately so. The
     approximation is purely directional: the filter lags the true path
     by at most (dir_rate−1) blocks."""
@@ -282,7 +282,7 @@ class GoldenStream:
     convolution with a frequency-domain delay line, per-block HRTF update.
 
     Latency = one block. State = (previous input block, FDL of past input
-    spectra, previous filter partitions) — the pytree the TPU version
+    spectra, previous filter partitions) — the pytree the JAX version
     carries through `lax.scan` (SURVEY.md §3.5, §5 "Checkpoint / resume").
 
     With ``config.crossfade`` (default), each block is rendered under both

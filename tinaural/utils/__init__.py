@@ -1,17 +1,15 @@
-"""Utilities: trajectory paths, profiling, logging."""
+"""Utilities: trajectory paths, profiling, logging, compile cache."""
 
-from .paths import circular_sweep, waypoints_to_block_dirs
+from .compile_cache import enable_compile_cache
 from .log import configure as configure_logging, get_logger
-from .profiling import (enable_debug_checks, fence, marginal_cost,
-                        marginal_cost_ab, timeit, trace)
+from .paths import circular_sweep, waypoints_to_block_dirs
+from .profiling import enable_debug_checks, timeit, trace
 
 __all__ = [
     "circular_sweep",
     "waypoints_to_block_dirs",
-    "fence",
+    "enable_compile_cache",
     "enable_debug_checks",
-    "marginal_cost",
-    "marginal_cost_ab",
     "timeit",
     "trace",
     "get_logger",
